@@ -12,14 +12,24 @@ Phases (any failure stops the script with a non-zero exit):
      (captured from a run of the entry point), two launches compared byte
      for byte, per-launch time, plain-version time, the bound and, where one
      PyTorch call computes the same function, that call's time;
+     K2', K5', K6' and K9 are held the same way at the octave-0 inputs of
+     the per-frame path (_extract_single on frame 0);
   4. main path: extract_batch on the B=4 1080p batch, then per-frame top-1024
      by response and cross-check matching of frame i against frame i+1 (the
      step bench.py times), with launch counts reset just before and read
      just after; kps/frame, the capacity overflow audit, median step time,
      peak memory, per-kernel time inside the step, a profile of one step;
-  5. card against CPU on one small seeded image;
-  6. refine_mode="step" (K4) against the default walk (K3) on that image;
-  7. one JSON line per run with every kernel's numbers.
+  5. budget: the same batch with features_limit=2048 (bench.py's step_b:
+     match the first 1024 rows), launches (K6' and never K6), median step,
+     peak memory; the output byte-identical to _truncate_result of the
+     unbudgeted output;
+  6. per-frame: _extract_single on frame 0 (K9, K2', K3, K5', K6') against
+     extract_batch's row for that frame;
+  7. split: precompute + extract_with_precomputed on frame 0 against
+     extract_batch's row, kps within 1e-4 and descriptor bytes within 1;
+  8. card against CPU on one small seeded image;
+  9. refine_mode="step" (K4) against the default walk (K3) on that image;
+  10. one JSON line with every kernel's numbers.
 The last line is {"ok": true, "device": {...}}.
 
 It needs one CUDA card and nvcc; without a card it exits with code 2 and
@@ -36,12 +46,22 @@ import numpy as np
 
 B, H, W = 4, 1080, 1920
 N_MATCH = 1024
+BUDGET = 2048
 SMALL = (240, 320)
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12     # f32 outside the tensor cores
 # the extractor's names of the kernel wrappers of the main path
 WRAPPERS = {"K1": "octave_fused", "K2": "extrema_words", "K3": "refine_walk",
             "K5": "orientation_hist_peaks", "K6": "descriptor_hist"}
+# kernel -> (module, wrapper name) of the per-frame path's kernels; the
+# window kernels are reached through their bucketed dispatchers
+SINGLE_WRAPPERS = {
+    "K9": ("sift_features_tpu_torch.models.extractor", "build_octave_padded"),
+    "K2′": ("sift_features_tpu_torch.models.extractor", "extrema_words_single"),
+    "K5′": ("sift_features_tpu_torch.ops.kernels.orientation",
+            "orientation_hist_prefix"),
+    "K6′": ("sift_features_tpu_torch.ops.kernels.descriptor",
+            "descriptor_hist_prefix")}
 
 
 def make_frames(b: int, h: int = H, w: int = W) -> np.ndarray:
@@ -84,25 +104,45 @@ def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def capture_octave0(torch, extractor, frames, dev):
-    """Run extract_batch once with every kernel wrapper wrapped, keeping the
-    arguments of each wrapper's first call (octave 0)."""
-    captured, saved = {}, {}
-    for k, attr in WRAPPERS.items():
-        fn = getattr(extractor, attr)
-        saved[attr] = fn
+def capture_first_calls(torch, wrappers, run):
+    """Run run() once with each wrapper in wrappers {kernel: (module,
+    attribute)} wrapped, keeping the arguments of each one's first call
+    (octave 0)."""
+    import importlib
+
+    captured, saved = {}, []
+    for k, (mod_name, attr) in wrappers.items():
+        mod = importlib.import_module(mod_name)
+        fn = getattr(mod, attr)
+        saved.append((mod, attr, fn))
 
         def rec(*args, _k=k, _fn=fn, **kw):
             captured.setdefault(_k, (args, kw))
             return _fn(*args, **kw)
-        setattr(extractor, attr, rec)
+        setattr(mod, attr, rec)
     try:
-        extractor.extract_batch(frames, device=dev)
+        run()
         torch.cuda.synchronize()
     finally:
-        for attr, fn in saved.items():
-            setattr(extractor, attr, fn)
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
     return captured
+
+
+def capture_octave0(torch, extractor, frames, dev):
+    """The octave-0 arguments of every kernel wrapper: the main path's
+    (extract_batch on the batch) and the per-frame path's (_extract_single
+    on frame 0)."""
+    mod = "sift_features_tpu_torch.models.extractor"
+    cap = capture_first_calls(
+        torch, {k: (mod, a) for k, a in WRAPPERS.items()},
+        lambda: extractor.extract_batch(frames, device=dev))
+    img = torch.as_tensor(frames[0], device=dev)
+    n_oct = extractor._n_octaves(H, W, extractor.DEFAULT_CONFIG)
+    cap.update(capture_first_calls(
+        torch, SINGLE_WRAPPERS,
+        lambda: extractor._extract_single(img, n_oct, extractor.DEFAULT_CONFIG)))
+    return cap
 
 
 def refine_steps_active(torch, args, cfg):
@@ -260,21 +300,275 @@ def check_kernels(torch, cap, cfg, dev):
     record("K6", [outs[0]], [outs[1]], [plain], False, 1e-4, ms, plain_ms,
            4 * px + live.numel() * (6 * 4 + 128 * 4), 100 * smp,
            note=f"; {n_live} live of {live.numel()} lanes")
+    del outs, plain
+
+    # K9: the per-frame octave-0 chain, one launch per level; times and
+    # bound per launch (the mean over the octave's levels)
+    (base, _), _ = cap["K9"]
+    outs = [k1.build_octave_padded(base, cfg) for _ in range(2)]
+    plain = k1.build_octave_padded_plain(base, cfg)
+    n_lv = len(taps)
+    px = base.numel()
+    ms = time_ms(torch, lambda: k1.build_octave_padded(base, cfg), 5) / n_lv
+    plain_ms = time_ms(torch, lambda: k1.build_octave_padded_plain(base, cfg),
+                       2) / n_lv
+    # yardstick: one cuDNN convolution of level 1's taps as a 2D kernel
+    t0 = taps[0].astype(np.float64)
+    r0 = len(t0) // 2
+    w1 = torch.from_numpy(np.outer(t0, t0).astype(np.float32)[None, None]).to(dev)
+    lib_ms = time_ms(torch, lambda: conv(base[None, None], w1, padding=r0), 5)
+    record("K9", list(outs[0]), list(outs[1]), list(plain), True, 0.0, ms,
+           plain_ms, 4 * px * 3, px * (sum(4 * len(t) for t in taps)
+                                       + len(taps)) / n_lv,
+           lib_ms, f" (per level, {n_lv} levels); library conv2d of level 1 "
+           f"{lib_ms:.3f} ms")
+    del outs, plain
+
+    # K2': the per-frame octave-0 words (the K2 kernel, one frame)
+    (dog1, bounds1, _), _ = cap["K2′"]
+    outs = [k2.extrema_words_single(dog1, bounds1, cfg) for _ in range(2)]
+    plain = k2.extrema_words_plain(dog1[None], bounds1, cfg)[0]
+    ms = time_ms(torch, lambda: k2.extrema_words_single(dog1, bounds1, cfg), 10)
+    plain_ms = time_ms(torch, lambda: k2.extrema_words_plain(
+        dog1[None], bounds1, cfg), 2)
+    record("K2′", [outs[0]], [outs[1]], [plain], True, 0.0, ms, plain_ms,
+           dog1.numel() * 4 + outs[0].numel() * 4, dog1.numel() // 5 * 3 * 27)
+    del outs, plain
+
+    # K5' and K6': the count-prefix window kernels at the per-frame octave 0
+    args, kw = cap["K5′"]
+    outs = [k5.orientation_hist_prefix(*args, **kw) for _ in range(2)]
+    count = args[5]
+    scale = args[4]
+    live = torch.arange(scale.numel(), device=dev) < count
+    plain = k5.orientation_plain(*args[:5], live, *args[6:], **kw)
+    n_live, px, smp = window_samples(torch, scale, live,
+                                     3.0 * cfg.lambda_ori, 16)
+    ms = time_ms(torch, lambda: k5.orientation_hist_prefix(*args, **kw), 10)
+    plain_ms = time_ms(torch, lambda: k5.orientation_plain(
+        *args[:5], live, *args[6:], **kw), 1, 0)
+    record("K5′", outs[0], outs[1], plain, False, 1e-4, ms, plain_ms,
+           4 * px + live.numel() * (4 * 4 + 41 * 4) + 4, 60 * smp,
+           note=f"; count {n_live} of {live.numel()} lanes")
+    del outs, plain
+
+    args, kw = cap["K6′"]
+    outs = [k6.descriptor_hist_prefix(*args, **kw) for _ in range(2)]
+    count, scale = args[6], args[4]
+    live = torch.arange(scale.numel(), device=dev) < count
+    plain = k6.descriptor_plain(*args[:6], live, *args[7:], **kw)
+    n_live, px, smp = window_samples(torch, scale, live, radius_factor, 39)
+    ms = time_ms(torch, lambda: k6.descriptor_hist_prefix(*args, **kw), 5)
+    plain_ms = time_ms(torch, lambda: k6.descriptor_plain(
+        *args[:6], live, *args[7:], **kw), 1, 0)
+    record("K6′", [outs[0]], [outs[1]], [plain], False, 1e-4, ms, plain_ms,
+           4 * px + live.numel() * (5 * 4 + 128 * 4) + 4, 100 * smp,
+           note=f"; count {n_live} of {live.numel()} lanes")
     return rows
 
 
 def main_path_step(torch, extract_batch, match_dense, frames, cfg, dev):
     """One step of the bench: extract, per-frame top-1024 by response,
     cross-check matching of frame i (queries) against frame i+1 (train)."""
+    from sift_features_tpu_torch.models.extractor import stable_top_k
+
     res = extract_batch(frames, cfg, device=dev)
     resp = torch.where(res["valid"], res["kps"][..., 4],
                        torch.tensor(float("-inf"), device=dev))
-    top = torch.topk(resp, N_MATCH, dim=1).indices
+    # jax.lax.top_k's tie rule (bench.py:90): lower index first
+    top = stable_top_k(resp, N_MATCH)[1]
     desc = torch.gather(res["desc"], 1, top[..., None].expand(-1, -1, 128))
     d = desc.float()
     matches = [match_dense(d[(i + 1) % d.shape[0]], d[i])
                for i in range(d.shape[0])]
     return res, d, matches
+
+
+def same_rows(torch, extractor, got, want, cfg):
+    """got: _extract_single's result; want: extract_batch's row for that
+    frame. Counters and valid must be identical. -> (share of rows
+    byte-equal in kps and desc, max kps field difference, max descriptor
+    byte difference, the octaves whose rows differ)."""
+    for key in ("n_candidates", "n_survivors", "n_emitted", "valid"):
+        if not torch.equal(got[key], want[key]):
+            raise SystemExit(f"chip_smoke: per-frame: {key} differs from "
+                             f"extract_batch")
+    v = want["valid"]
+    kg, kw = got["kps"][v], want["kps"][v]
+    dg, dw = got["desc"][v], want["desc"][v]
+    eq = (kg == kw).all(1) & (dg == dw).all(1)
+    kp_err = float((kg - kw).abs().max()) if v.any() else 0.0
+    d_err = int((dg.int() - dw.int()).abs().max()) if v.any() else 0
+    # octave of each row, from the per-octave capacities
+    caps, hh, ww = [], H * cfg.inv_delta_min, W * cfg.inv_delta_min
+    for _ in range(want["n_emitted"].shape[0]):
+        caps.append(extractor.octave_capacities(hh, ww, cfg)[2])
+        hh, ww = hh // 2, ww // 2
+    octave = np.repeat(np.arange(len(caps)), caps)[v.cpu().numpy()]
+    bad = sorted(set(octave[~eq.cpu().numpy()].tolist()))
+    return float(eq.float().mean()), kp_err, d_err, bad
+
+
+def device_allocs(torch) -> int:
+    """cudaMalloc calls of PyTorch's caching allocator so far (each one a
+    new segment the cache could not serve)."""
+    return int(torch.cuda.memory_stats().get("num_device_alloc", 0))
+
+
+def profile_step(torch, step, step_ms: float, tag: str, top: int = 15) -> float:
+    """Device kernel time of one step() by kernel and host-op time by
+    operator (torch.profiler, CUPTI); prints the top entries and returns the
+    summed device kernel ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    kern, ops = [], []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        tot_us = getattr(e, "device_time_total",
+                         getattr(e, "cuda_time_total", 0))
+        if e.device_type == DeviceType.CUDA and dev_us > 0:
+            kern.append((dev_us / 1e3, e.count, e.key))
+        elif e.device_type == DeviceType.CPU and tot_us > 0:
+            ops.append((tot_us / 1e3, e.count, e.key))
+    kern.sort(reverse=True)
+    ops.sort(reverse=True)
+    busy_ms = sum(t for t, _, _ in kern)
+    print(f"[{tag}] one step: {busy_ms:.1f} ms of device kernels "
+          f"({busy_ms / step_ms:.1%} of the median step)")
+    for t, n, key in kern[:top]:
+        print(f"[{tag}] kernel {t:9.3f} ms {n:6d}x  {key[:80]}")
+    for t, n, key in ops[:top]:
+        print(f"[{tag}] op     {t:9.3f} ms {n:6d}x  {key[:80]}")
+    return busy_ms
+
+
+def budget_phase(torch, extractor, match_dense, frames, res_full, cfg, dev):
+    """bench.py's step_b: extract_batch with features_limit, then matching
+    of the first min(1024, limit) rows of frame i against frame i+1."""
+    from sift_features_tpu_torch.ops.kernels import build
+
+    k = min(N_MATCH, BUDGET)
+
+    def step():
+        r = extractor.extract_batch(frames, cfg, features_limit=BUDGET,
+                                    device=dev)
+        d = r["desc"][:, :k].float()
+        return r, [match_dense(d[(i + 1) % B], d[i]) for i in range(B)]
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    rb, matches = step()
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not launches.get("K6′") or launches.get("K6"):
+        raise SystemExit(f"chip_smoke: budget path must launch K6′ and not K6: "
+                         f"{launches}")
+    want = extractor._truncate_result(res_full, BUDGET)
+    for key in ("kps", "desc", "valid", "src_idx"):
+        if not torch.equal(rb[key], want[key]):
+            raise SystemExit(f"chip_smoke: budgeted {key} differs from the "
+                             f"truncated unbudgeted output")
+    kps_frame = rb["valid"].sum(1).tolist()
+    n_kept = [int(m[2].sum()) for m in matches]
+    if min(kps_frame) < k or min(n_kept) < 1:
+        raise SystemExit(f"chip_smoke: budget: {kps_frame} rows, {n_kept} kept")
+    # 10 budget steps interleaved with 10 unbudgeted ones, so the host
+    # clock's drift touches both alike
+    step_s, full_s = [], []
+    allocs = {"budget": 0, "unbudgeted": 0}
+    for _ in range(10):
+        for kind, fn, acc in (("budget", step, step_s), ("unbudgeted", lambda:
+                main_path_step(torch, extractor.extract_batch, match_dense,
+                               frames, cfg, dev), full_s)):
+            n0 = device_allocs(torch)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            acc.append(time.perf_counter() - t0)
+            allocs[kind] += device_allocs(torch) - n0
+    med = statistics.median(step_s) * 1e3
+    busy_ms = profile_step(torch, step, med, "budget-profile", top=8)
+    row = {"e2e": f"1080p extract features_limit={BUDGET} + match first {k}, "
+                  f"B={B}", "kps_per_frame": kps_frame, "matches_kept": n_kept,
+           "median_step_ms": med, "step_ms": [t * 1e3 for t in step_s],
+           "frames_per_s": B / statistics.median(step_s),
+           "unbudgeted_median_step_ms_interleaved":
+               statistics.median(full_s) * 1e3,
+           "unbudgeted_step_ms_interleaved": [t * 1e3 for t in full_s],
+           "profiled_step_kernel_ms": busy_ms,
+           "device_allocs_in_interleaved_steps": allocs,
+           "peak_mem_gb": peak_gb, "launches": launches,
+           "identical_to_truncation": True}
+    print(f"[budget] byte-identical to _truncate_result of the unbudgeted "
+          f"output; K6′ launches {launches['K6′']}, K6 none", flush=True)
+    print(json.dumps(row, ensure_ascii=False), flush=True)
+    return row
+
+
+def per_frame_phase(torch, extractor, frames, res_full, cfg, dev):
+    """_extract_single on frame 0 against extract_batch's row 0."""
+    from sift_features_tpu_torch.ops.kernels import build
+
+    img = torch.as_tensor(frames[0], device=dev)
+    n_oct = extractor._n_octaves(H, W, cfg)
+    extractor._extract_single(img, n_oct, cfg)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    got = extractor._extract_single(img, n_oct, cfg)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    for k in ("K9", "K2′", "K3", "K5′", "K6′"):
+        if not launches.get(k):
+            raise SystemExit(f"chip_smoke: per-frame path did not launch {k}: "
+                             f"{launches}")
+    want = {k: v[0] for k, v in res_full.items()}
+    frac, kp_err, d_err, bad = same_rows(torch, extractor, got, want, cfg)
+    t_ms = time_ms(torch, lambda: extractor._extract_single(img, n_oct, cfg), 3)
+    profile_step(torch, lambda: extractor._extract_single(img, n_oct, cfg), t_ms,
+                 "per-frame-profile", top=8)
+    print(f"[per-frame] launches {launches}; {int(want['valid'].sum())} "
+          f"keypoints, counters and valid identical; rows byte-equal "
+          f"{frac:.6f}, max field diff {kp_err:.3g}, max byte diff {d_err}, "
+          f"octaves with differing rows {bad}; {t_ms:.1f} ms per frame",
+          flush=True)
+    if frac < 0.99 or kp_err > 1e-3:
+        raise SystemExit("chip_smoke: per-frame path disagrees with "
+                         "extract_batch")
+    return launches
+
+
+def split_phase(torch, extractor, frames, res_full, cfg, dev):
+    """precompute + extract_with_precomputed on frame 0 against
+    extract_batch's row 0, at tests/test_split_api.py's tolerance."""
+    from sift_features_tpu_torch.ops.kernels import build
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    octs, dogs = extractor.precompute(frames[:1], cfg, device=dev)
+    got = extractor.extract_with_precomputed(octs, dogs, cfg, device=dev)
+    torch.cuda.synchronize()
+    t_s = time.perf_counter() - t0
+    got = {k: v[0] for k, v in got.items()}
+    want = {k: v[0] for k, v in res_full.items()}
+    vs, vw = got["valid"], want["valid"]
+    if int(vs.sum()) != int(vw.sum()):
+        raise SystemExit(f"chip_smoke: split path found {int(vs.sum())} "
+                         f"keypoints, extract_batch {int(vw.sum())}")
+    kp_err = float((got["kps"][vs] - want["kps"][vw]).abs().max())
+    d_err = int((got["desc"][vs].int() - want["desc"][vw].int()).abs().max())
+    print(f"[split] launches {dict(build.LAUNCHES)}; {int(vs.sum())} "
+          f"keypoints as extract_batch; max field diff {kp_err:.3g}, max byte "
+          f"diff {d_err}; {t_s * 1e3:.1f} ms (first call)", flush=True)
+    if kp_err > 1e-4 or d_err > 1:
+        raise SystemExit("chip_smoke: split path disagrees with extract_batch")
 
 
 def main() -> int:
@@ -377,41 +671,20 @@ def main() -> int:
     in_step = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in events.items()}
 
     step_s = []
+    n_alloc = device_allocs(torch)
     for _ in range(10):
         t0 = time.perf_counter()
         main_path_step(torch, extractor.extract_batch, match_dense, frames,
                        cfg, dev)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
+    n_alloc = device_allocs(torch) - n_alloc
     step_med = statistics.median(step_s)
     # device time over one step by kernel and by operator (torch.profiler,
     # CUPTI), after the timed steps so its overhead touches none of them
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        main_path_step(torch, extractor.extract_batch, match_dense, frames,
-                       cfg, dev)
-        torch.cuda.synchronize()
-    kern, ops = [], []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-        tot_us = getattr(e, "device_time_total",
-                         getattr(e, "cuda_time_total", 0))
-        if e.device_type == DeviceType.CUDA and dev_us > 0:
-            kern.append((dev_us / 1e3, e.count, e.key))
-        elif e.device_type == DeviceType.CPU and tot_us > 0:
-            ops.append((tot_us / 1e3, e.count, e.key))
-    kern.sort(reverse=True)
-    ops.sort(reverse=True)
-    busy_ms = sum(t for t, _, _ in kern)
-    print(f"[profile] one step: {busy_ms:.1f} ms of device kernels "
-          f"({busy_ms / (step_med * 1e3):.1%} of the median step)")
-    for t, n, key in kern[:15]:
-        print(f"[profile] kernel {t:9.3f} ms {n:6d}x  {key[:80]}")
-    for t, n, key in ops[:15]:
-        print(f"[profile] op     {t:9.3f} ms {n:6d}x  {key[:80]}")
+    busy_ms = profile_step(torch, lambda: main_path_step(
+        torch, extractor.extract_batch, match_dense, frames, cfg, dev),
+        step_med * 1e3, "profile")
 
     dt = torch.roll(d, -1, 0)
     match_ms = time_ms(torch, lambda: [match_dense(d[(i + 1) % B], d[i])
@@ -425,11 +698,22 @@ def main() -> int:
         "peak_mem_gb": peak_gb, "launches": launches,
         "kernel_ms_in_step": in_step,
         "kernel_ms_per_launch_in_step": {k: v / launches[k] for k, v in in_step.items()},
-        "profiled_step_kernel_ms": busy_ms, "match_ms": match_ms,
+        "profiled_step_kernel_ms": busy_ms, "device_allocs_in_timed_steps": n_alloc,
+        "match_ms": match_ms,
         "match_library_cdist_ms": cdist_ms, "capacity_overflow": overflow}),
         flush=True)
 
-    # 5. card against CPU on a small image
+    # 5. budget: bench.py's step_b at features_limit=2048
+    budget_row = budget_phase(torch, extractor, match_dense, frames, res, cfg,
+                              dev)
+
+    # 6. per-frame path, 7. split path: frame 0 against extract_batch's row
+    single_launches = per_frame_phase(torch, extractor, frames, res, cfg, dev)
+    split_phase(torch, extractor, frames, res, cfg, dev)
+    del res, d, matches
+    torch.cuda.empty_cache()
+
+    # 8. card against CPU on a small image
     img = small_image(torch)[None]
     rc = extractor.extract_batch(img, cfg, device=dev)
     rh = extractor.extract_batch(img, cfg, device="cpu")
@@ -445,7 +729,7 @@ def main() -> int:
     if int(v.sum()) < 50 or kp_err > 1e-3 or rows_eq < 0.99:
         raise SystemExit("chip_smoke: card and CPU disagree")
 
-    # 6. refine_mode="step" (K4) against the default walk
+    # 9. refine_mode="step" (K4) against the default walk
     import dataclasses
 
     build.reset_launches()
@@ -461,17 +745,19 @@ def main() -> int:
     print(f"[step-mode] K4 launches {step_launches['K4']}: keypoints and "
           f"descriptors identical to walk mode", flush=True)
 
-    # 7. the kernels line
+    # 10. the kernels line
+    paths = {"K4": ("refine_mode=step, 240x320", step_launches),
+             "K6′": (f"budget, features_limit={BUDGET}", budget_row["launches"])}
+    for k in ("K9", "K2′", "K5′"):
+        paths[k] = ("per-frame _extract_single, 1080p frame 0", single_launches)
     kernels = []
     for k, (src, replaces) in KERNELS.items():
-        n = step_launches.get(k, 0) if k == "K4" else launches.get(k, 0)
+        path, counts = paths.get(k, ("main path", launches))
         kernels.append({"name": k, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": n,
-                        "launches_path": ("refine_mode=step, 240x320"
-                                          if k == "K4" else "main path"),
-                        **rows[k]})
+                        "replaces": replaces, "launches": counts.get(k, 0),
+                        "launches_path": path, **rows[k]})
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels}, ensure_ascii=False))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -1,8 +1,11 @@
 // K6: 4x4x8 SIFT descriptor histograms over a rotated window.
 //
-// Replaces the TPU kernel sift_features_tpu/ops/pallas/descriptor_packed.py:
-// descriptor_hist_packed_masked (_kernel), which the JAX extractor dispatches
-// per scale bucket. Per live keypoint it computes the raw 128-bin
+// Replaces the TPU kernels of sift_features_tpu/ops/pallas/descriptor_packed.py
+// (one _kernel, two liveness modes), which the JAX extractor dispatches per
+// scale bucket: K6 descriptor_hist_packed_masked (a per-lane live flag,
+// entry sift_descriptor) and K6' descriptor_hist_packed (lane i is live iff
+// i < count, the count read from device memory so the caller never syncs
+// the host; entry sift_descriptor_prefix). Per live keypoint it computes the raw 128-bin
 // histogram of compute_descriptor (lib.rs:785-948) with the per-sample f32
 // math of that kernel: radius round_half_away(lambda_descr * scale * sqrt2 *
 // (n_hist + 1) * 0.5), the window rotated by 360 - angle degrees and scaled
@@ -56,8 +59,8 @@ __global__ void __launch_bounds__(DESC_THREADS) descriptor_kernel(
     const float* __restrict__ gauss, int Hp, int Wp, const int* __restrict__ plane,
     const int* __restrict__ ys, const int* __restrict__ xs,
     const float* __restrict__ scales, const float* __restrict__ angles,
-    const int* __restrict__ live, float* __restrict__ hist, int h, int w, int pad,
-    int r_max, DescParams prm) {
+    const int* __restrict__ live, const int* __restrict__ count,
+    float* __restrict__ hist, int h, int w, int pad, int r_max, DescParams prm) {
   extern __shared__ float rows[];  // (2 r_max + 1) rows of stride D + 1
   const int n_hist = prm.n_hist, n_bins = prm.n_bins;
   const int D = n_hist * n_hist * n_bins;
@@ -65,7 +68,7 @@ __global__ void __launch_bounds__(DESC_THREADS) descriptor_kernel(
   int k = blockIdx.x;
   int t = threadIdx.x;
   float* hrow = hist + (long long)k * D;
-  if (!live[k]) {
+  if (count ? k >= *count : !live[k]) {
     for (int b = t; b < D; b += blockDim.x) hrow[b] = 0.0f;
     return;
   }
@@ -148,6 +151,22 @@ __global__ void __launch_bounds__(DESC_THREADS) descriptor_kernel(
   }
 }
 
+static int launch_descriptor(const float* gauss, int Hp, int Wp, const int* plane,
+                             const int* y, const int* x, const float* scale,
+                             const float* angle, const int* live, const int* count,
+                             float* hist, int M, int h, int w, int pad, int r_max,
+                             DescParams prm, cudaStream_t stream) {
+  int D = prm.n_hist * prm.n_hist * prm.n_bins;
+  if (D > MAX_D || 2 * r_max + 1 > DESC_THREADS) return (int)cudaErrorInvalidValue;
+  if (M == 0) return 0;
+  size_t smem = (size_t)(2 * r_max + 1) * (D + 1) * sizeof(float);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  descriptor_kernel<<<M, DESC_THREADS, smem, stream>>>(gauss, Hp, Wp, plane, y, x, scale,
+                                                       angle, live, count, hist, h, w,
+                                                       pad, r_max, prm);
+  return (int)cudaGetLastError();
+}
+
 // gauss (n_planes, Hp, Wp) f32; plane/y/x/live (M,) int32 ((y, x) unpadded
 // octave coordinates, the rounded keypoint position); scale/angle (M,) f32
 // -> hist (M, n_hist^2 n_bins) raw f32, zero on dead lanes.
@@ -158,14 +177,22 @@ SIFT_EXPORT int sift_descriptor(const float* gauss, int Hp, int Wp, const int* p
                                 int n_bins, float lambda_descr, float sqrt2,
                                 float deg2rad, float rad2deg, float bin_step,
                                 float wscale, cudaStream_t stream) {
-  if (n_hist * n_hist * n_bins > MAX_D || 2 * r_max + 1 > DESC_THREADS)
-    return (int)cudaErrorInvalidValue;
-  if (M == 0) return 0;
   DescParams prm{n_hist, n_bins, lambda_descr, sqrt2, deg2rad, rad2deg, bin_step, wscale};
-  size_t smem = (size_t)(2 * r_max + 1) * (n_hist * n_hist * n_bins + 1) * sizeof(float);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  descriptor_kernel<<<M, DESC_THREADS, smem, stream>>>(gauss, Hp, Wp, plane, y, x, scale,
-                                                       angle, live, hist, h, w, pad,
-                                                       r_max, prm);
-  return (int)cudaGetLastError();
+  return launch_descriptor(gauss, Hp, Wp, plane, y, x, scale, angle, live, nullptr, hist,
+                           M, h, w, pad, r_max, prm, stream);
+}
+
+// K6': the same with lane i live iff i < *count (count: one int32 on the
+// device).
+SIFT_EXPORT int sift_descriptor_prefix(const float* gauss, int Hp, int Wp,
+                                       const int* plane, const int* y, const int* x,
+                                       const float* scale, const float* angle,
+                                       const int* count, float* hist, int M, int h,
+                                       int w, int pad, int r_max, int n_hist,
+                                       int n_bins, float lambda_descr, float sqrt2,
+                                       float deg2rad, float rad2deg, float bin_step,
+                                       float wscale, cudaStream_t stream) {
+  DescParams prm{n_hist, n_bins, lambda_descr, sqrt2, deg2rad, rad2deg, bin_step, wscale};
+  return launch_descriptor(gauss, Hp, Wp, plane, y, x, scale, angle, nullptr, count,
+                           hist, M, h, w, pad, r_max, prm, stream);
 }

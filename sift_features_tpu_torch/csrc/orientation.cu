@@ -1,8 +1,11 @@
 // K5: 36-bin gradient-orientation histograms with in-kernel peaks.
 //
-// Replaces the TPU kernel sift_features_tpu/ops/pallas/orientation_packed.py:
-// orientation_histograms_packed_masked (_kernel), which the JAX extractor
-// dispatches per scale bucket. Per live survivor it computes the raw
+// Replaces the TPU kernels of sift_features_tpu/ops/pallas/orientation_packed.py
+// (one _kernel, two liveness modes), which the JAX extractor dispatches per
+// scale bucket: K5 orientation_histograms_packed_masked (a per-lane live
+// flag, entry sift_orientation) and K5' orientation_histograms_packed (lane i
+// is live iff i < count, the count read from device memory; entry
+// sift_orientation_prefix). Per live survivor it computes the raw
 // histogram of gradient_direction_histogram (lib.rs:655-757): radius
 // round_half_away(3 * lambda_ori * scale), Gaussian weight
 // exp(d2 * -1 / (2 sigma^2)) (rounded once from f64), magnitude sqrt(gx^2 +
@@ -32,15 +35,15 @@ __global__ void orientation_kernel(
     const float* __restrict__ gauss, int Hp, int Wp, const int* __restrict__ plane,
     const int* __restrict__ ys, const int* __restrict__ xs,
     const float* __restrict__ scales, const int* __restrict__ live,
-    float* __restrict__ hist, float* __restrict__ ang, int* __restrict__ npk,
-    int h, int w, int pad, int n_bins, int n_peaks, float radius_factor,
+    const int* __restrict__ count, float* __restrict__ hist, float* __restrict__ ang,
+    int* __restrict__ npk, int h, int w, int pad, int n_bins, int n_peaks, float radius_factor,
     float lambda_ori, float ratio, float bstep) {
   __shared__ float rows[2 * R_ORI_MAX + 1][MAX_BINS + 1];
   __shared__ float raw[MAX_BINS];
   int k = blockIdx.x;
   int t = threadIdx.x;
   float* hrow = hist + (long long)k * n_bins;
-  if (!live[k]) {
+  if (count ? k >= *count : !live[k]) {
     for (int b = t; b < n_bins; b += blockDim.x) hrow[b] = 0.0f;
     for (int j = t; j < n_peaks; j += blockDim.x) ang[(long long)k * n_peaks + j] = 0.0f;
     if (t == 0) npk[k] = 0;
@@ -113,6 +116,21 @@ __global__ void orientation_kernel(
   npk[k] = cnt;
 }
 
+static int launch_orientation(const float* gauss, int Hp, int Wp, const int* plane,
+                              const int* y, const int* x, const float* scale,
+                              const int* live, const int* count, float* hist, float* ang,
+                              int* npk, int K, int h, int w, int pad, int n_bins,
+                              int n_peaks, float radius_factor, float lambda_ori,
+                              float ratio, float bstep, cudaStream_t stream) {
+  if (n_bins > MAX_BINS || n_peaks > MAX_PEAKS) return (int)cudaErrorInvalidValue;
+  if (K == 0) return 0;
+  orientation_kernel<<<K, 64, 0, stream>>>(gauss, Hp, Wp, plane, y, x, scale, live,
+                                           count, hist, ang, npk, h, w, pad, n_bins,
+                                           n_peaks, radius_factor, lambda_ori,
+                                           ratio, bstep);
+  return (int)cudaGetLastError();
+}
+
 // gauss (n_planes, Hp, Wp) f32; plane/y/x/live (K,) int32 (y, x unpadded
 // octave coordinates); scale (K,) f32 -> hist (K, n_bins) raw f32, ang
 // (K, n_peaks) f32, npk (K,) int32. Dead lanes get zeros.
@@ -123,11 +141,21 @@ SIFT_EXPORT int sift_orientation(const float* gauss, int Hp, int Wp,
                                  int n_bins, int n_peaks, float radius_factor,
                                  float lambda_ori, float ratio, float bstep,
                                  cudaStream_t stream) {
-  if (n_bins > MAX_BINS || n_peaks > MAX_PEAKS) return (int)cudaErrorInvalidValue;
-  if (K == 0) return 0;
-  orientation_kernel<<<K, 64, 0, stream>>>(gauss, Hp, Wp, plane, y, x, scale, live,
-                                           hist, ang, npk, h, w, pad, n_bins,
-                                           n_peaks, radius_factor, lambda_ori,
-                                           ratio, bstep);
-  return (int)cudaGetLastError();
+  return launch_orientation(gauss, Hp, Wp, plane, y, x, scale, live, nullptr, hist, ang,
+                            npk, K, h, w, pad, n_bins, n_peaks, radius_factor,
+                            lambda_ori, ratio, bstep, stream);
+}
+
+// K5': the same with lane i live iff i < *count (count: one int32 on the
+// device).
+SIFT_EXPORT int sift_orientation_prefix(const float* gauss, int Hp, int Wp,
+                                        const int* plane, const int* y, const int* x,
+                                        const float* scale, const int* count,
+                                        float* hist, float* ang, int* npk, int K, int h,
+                                        int w, int pad, int n_bins, int n_peaks,
+                                        float radius_factor, float lambda_ori,
+                                        float ratio, float bstep, cudaStream_t stream) {
+  return launch_orientation(gauss, Hp, Wp, plane, y, x, scale, nullptr, count, hist, ang,
+                            npk, K, h, w, pad, n_bins, n_peaks, radius_factor,
+                            lambda_ori, ratio, bstep, stream);
 }

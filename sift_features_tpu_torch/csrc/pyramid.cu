@@ -1,4 +1,5 @@
-// K1: whole-octave Gaussian blur chain + DoG over the padded plane.
+// K1: whole-octave Gaussian blur chain + DoG over the padded plane, and K9:
+// one level of that chain per call.
 //
 // Replaces the TPU kernel sift_features_tpu/ops/pallas/pyramid_kernel.py:
 // build_octave_fused (_octave_kernel). Same arithmetic: each level is a
@@ -18,6 +19,13 @@
 // L1/L2 for the tap re-reads. Keeping the chain on chip (shared-memory row
 // strips with the cumulative halo, as the TPU kernel does in VMEM) is later
 // work.
+//
+// K9 replaces sift_features_tpu/ops/pallas/pyramid_kernel.py:_call_level
+// (driven level by level by build_octave_padded, the per-frame path's
+// octave construction): one H pass and one V pass (which also writes the
+// DoG) from a given source plane into a given Gaussian slot and DoG slot.
+// Same two kernels as K1, so a chain of K9 calls equals K1 bit for bit;
+// its bound per level is one plane read and two written.
 #include "common.cuh"
 
 #define MAX_TAPS 64
@@ -104,5 +112,24 @@ SIFT_EXPORT int sift_octave_fused(const float* base, float* gauss, float* extra,
     prev = out;
     prev_fs = out_fs;
   }
+  return (int)cudaGetLastError();
+}
+
+// K9: one level. prev (B frames at stride prev_fs) -> out (stride out_fs),
+// dog = out - prev (stride dog_fs); tmp (B, Hp, Wp) the H-pass scratch;
+// taps: ksize host floats.
+SIFT_EXPORT int sift_octave_level(const float* prev, long long prev_fs, float* out,
+                                  long long out_fs, float* dog, long long dog_fs,
+                                  float* tmp, int B, int Hp, int Wp, const float* taps_in,
+                                  int ksize, cudaStream_t stream) {
+  if (ksize > MAX_TAPS || ksize < 1) return (int)cudaErrorInvalidValue;
+  Taps taps;
+  taps.n = ksize;
+  for (int j = 0; j < ksize; ++j) taps.t[j] = taps_in[j];
+  dim3 block(256);
+  dim3 grid((Wp + 255) / 256, Hp, B);
+  hpass_kernel<<<grid, block, 0, stream>>>(prev, prev_fs, tmp, Hp, Wp, taps);
+  vpass_kernel<<<grid, block, 0, stream>>>(tmp, prev, prev_fs, out, out_fs, dog, dog_fs,
+                                           Hp, Wp, taps);
   return (int)cudaGetLastError();
 }

@@ -1,23 +1,30 @@
 """End-to-end SIFT extractor of the port.
 
-Counterpart of sift_features_tpu/models/extractor.py: the frame-batched
+Counterpart of sift_features_tpu/models/extractor.py. The frame-batched
 fused path `_extract_batch_fused`, for every octave whose padded plane is at
-least 256 x 256,
+least 256 x 256:
 
     seed -> [K1 blur chain + DoG -> K2 extremum words -> word compaction ->
     K3 Newton walk (or K4 steps) -> survivor compaction -> K5 orientation
     histograms + peaks -> emission compaction -> K6 descriptor histograms ->
     finalize_descriptor]
 
-and the plain path of `_detect_octave` (pure torch ops, batched over frames)
-for the tiny top octaves. Per-frame compaction keeps the reference's scan
-order; per-octave counters n_candidates / n_survivors / n_emitted expose any
+With a features_limit the descriptors wait: `_assemble_budget` takes each
+frame's response top-K over all octaves first and describes only the chosen
+keypoints (K6′ through `descriptor_hist_bucketed`).
+
+The per-frame path `_extract_single` builds each octave level by level (K9)
+and runs the single-frame `_detect_octave`: K2′ words (or the plain extremum
+scan), K3 or K4, K5′ histograms, K6′ descriptors. `extract_with_precomputed`
+runs the same `_detect_octave` on `precompute`'s plain pyramid. Which branch
+of `_detect_octave` runs depends on shapes only, as on the TPU, so the CPU
+runs the same branches with the kernels' plain versions inside.
+
+The tiny top octaves take `_detect_octave_plain` (pure torch ops, batched
+over frames). Per-frame compaction keeps the reference's scan order;
+per-octave counters n_candidates / n_survivors / n_emitted expose any
 capacity overflow. Kernels launch once per stage per octave for the whole
 batch. With tensors on the CPU every kernel wrapper runs its plain version.
-
-Not ported yet (ROADMAP.md): features_limit (`_assemble_budget`,
-`_truncate_result`), precompute / extract_with_precomputed and the per-frame
-path `_extract_single`.
 """
 
 from __future__ import annotations
@@ -29,13 +36,15 @@ from ..config import DEFAULT_CONFIG, SiftConfig, check_supported
 from ..ops import descriptor as desc_ops
 from ..ops import extrema as ext_ops
 from ..ops import orientation as ori_ops
-from ..ops.gaussian import gaussian_blur
-from ..ops.kernels.descriptor import descriptor_hist
-from ..ops.kernels.extrema import extrema_words
-from ..ops.kernels.orientation import orientation_hist_peaks
-from ..ops.kernels.pyramid import octave_fused, reflect_pad_image
+from ..ops.kernels.descriptor import descriptor_hist, descriptor_hist_bucketed
+from ..ops.kernels.extrema import extrema_words, extrema_words_single
+from ..ops.kernels.orientation import (orientation_hist_peaks,
+                                       orientation_histograms_bucketed)
+from ..ops.kernels.pyramid import (build_octave_padded, octave_fused,
+                                   reflect_pad_image)
 from ..ops.kernels.refine import refine_stepwise, refine_walk
-from ..ops.pyramid import create_seed_image
+from ..ops.pyramid import (build_dog, build_scale_space, create_seed_image,
+                           octave_levels)
 from ..ops.resize import resize_nearest_half
 from ..ops.util import f32, rust_round
 from ..utils.compact import compact_indices
@@ -64,6 +73,14 @@ def padded_dims(h: int, w: int) -> tuple[int, int]:
     if w_pad > 1536:
         w_pad = -(-w_pad // 1024) * 1024
     return h_pad, w_pad
+
+
+def stable_top_k(values: torch.Tensor, k: int):
+    """Top k along the last axis, largest first, with jax.lax.top_k's tie
+    rule: among equal values the lower index comes first (torch.topk leaves
+    the order of ties unspecified). -> (values, int64 indices)."""
+    val, idx = torch.sort(values, dim=-1, descending=True, stable=True)
+    return val[..., :k], idx[..., :k]
 
 
 def _frame_offsets(b: int, per_frame: int, n: int, dev) -> torch.Tensor:
@@ -117,11 +134,24 @@ def _keypoints(surv, ci, kp_angle, evalid, octave: int, cfg: SiftConfig):
                  "kp_sc": kp_sc}
 
 
-def _detect_octave_batched(gauss_p, dog_p, octave: int, cfg: SiftConfig, hw):
+def _refine_auto(dog_flat, s0, y0, x0, valid, pad: int, h: int, w: int,
+                 cfg: SiftConfig, plane_off=None):
+    """The refinement dispatch of ops/extrema.py:refine_tpu_auto: the K3 walk
+    in walk mode when the stack is f32 with rows % 8 == 0 and columns % 128
+    == 0, else the K4 step loop."""
+    hp, wp = dog_flat.shape[-2], dog_flat.shape[-1]
+    tile_ok = dog_flat.dtype == F32 and hp % 8 == 0 and wp % 128 == 0
+    fn = refine_walk if cfg.refine_mode == "walk" and tile_ok else refine_stepwise
+    return fn(dog_flat, s0, y0, x0, valid, pad, h, w, cfg, plane_off=plane_off)
+
+
+def _detect_octave_batched(gauss_p, dog_p, octave: int, cfg: SiftConfig, hw,
+                           describe: bool = True):
     """Frame-batched detection on the padded stacks of K1: gauss_p (B, S,
     Hp, Wp) = levels 1..S, dog_p (B, S+2, Hp, Wp); hw the unpadded octave
-    size (models/extractor.py:_detect_octave_batched, describe=True,
-    stages="full")."""
+    size (models/extractor.py:_detect_octave_batched, stages="full").
+    describe=False (the budget path) skips the descriptors and returns their
+    inputs `desc_in` and the window stack `win_ctx` instead."""
     b, n_dog, hp, wp = dog_p.shape
     h, w = hw
     dev = dog_p.device
@@ -133,10 +163,9 @@ def _detect_octave_batched(gauss_p, dog_p, octave: int, cfg: SiftConfig, hw):
     words = extrema_words(dog_p, (p + bd, p + h - bd, p + bd, p + w - bd), cfg)
     s0, y0, x0, valid, n_cand = ext_ops.find_candidates_words(words, k)
 
-    refine_fn = refine_walk if cfg.refine_mode == "walk" else refine_stepwise
-    rows = refine_fn(dog_p.reshape(b * n_dog, hp, wp), s0.reshape(-1),
-                     y0.reshape(-1), x0.reshape(-1), valid.reshape(-1), p, h, w,
-                     cfg, plane_off=_frame_offsets(b, n_dog, k, dev))
+    rows = _refine_auto(dog_p.reshape(b * n_dog, hp, wp), s0.reshape(-1),
+                        y0.reshape(-1), x0.reshape(-1), valid.reshape(-1), p, h,
+                        w, cfg, plane_off=_frame_offsets(b, n_dog, k, dev))
     surv, svalid, n_surv = _survivors(rows, valid, b, k, k2, p)
     surv["kp_scale"] = ori_ops.kp_scale_of(surv["s"], surv["off_s"], cfg)
 
@@ -161,21 +190,47 @@ def _detect_octave_batched(gauss_p, dog_p, octave: int, cfg: SiftConfig, hw):
             angles_p.reshape(b, k2, n_pk_cap), emit, svalid, m)
 
     kps, d_in = _keypoints(surv, ci, kp_angle, evalid, octave, cfg)
+    xi = rust_round(d_in["x_oct"]).to(torch.int32)
+    yi = rust_round(d_in["y_oct"]).to(torch.int32)
+    res = {"kps": kps, "valid": evalid, "n_candidates": n_cand,
+           "n_survivors": n_surv, "n_emitted": n_emit}
+    if not describe:
+        # the budget path describes only the chosen keypoints later, which
+        # keeps every octave's window stack alive until then
+        # (models/extractor.py:414-428)
+        res["desc_in"] = {"kp_s": d_in["kp_s"], "xi": xi, "yi": yi,
+                          "kp_sc": d_in["kp_sc"], "kp_angle": kp_angle}
+        res["win_ctx"] = (gauss_flat, n_win)
+        return res
     hist = descriptor_hist(
         gauss_flat, (d_in["kp_s"] - 1).reshape(-1) + _frame_offsets(b, n_win, m, dev),
-        rust_round(d_in["x_oct"]).to(torch.int32).reshape(-1),
-        rust_round(d_in["y_oct"]).to(torch.int32).reshape(-1),
-        d_in["kp_sc"].reshape(-1), kp_angle.reshape(-1), evalid.reshape(-1),
-        h, w, p, cfg)
-    desc = desc_ops.finalize_descriptor(hist, cfg).reshape(b, m, -1)
-    return {"kps": kps, "desc": desc, "valid": evalid, "n_candidates": n_cand,
-            "n_survivors": n_surv, "n_emitted": n_emit}
+        xi.reshape(-1), yi.reshape(-1), d_in["kp_sc"].reshape(-1),
+        kp_angle.reshape(-1), evalid.reshape(-1), h, w, p, cfg)
+    res["desc"] = desc_ops.finalize_descriptor(hist, cfg).reshape(b, m, -1)
+    return res
 
 
-def _detect_octave(gauss: torch.Tensor, octave: int, cfg: SiftConfig):
-    """Tiny top octaves: the plain branch of models/extractor.py:
-    _detect_octave (pure torch ops, no kernel), batched over frames.
-    gauss (B, S+3, h, w) holds every level of the octave."""
+def _describe_subset(gauss_flat, win_planes: int, fields, live,
+                     cfg: SiftConfig, h: int, w: int):
+    """Descriptors (B, C, 128) u8 of a compacted keypoint subset: fields are
+    (B, C) tensors of `desc_in` gathered at the chosen rows, live the (B, C)
+    mask (models/extractor.py:_describe_subset); K6′ serves it."""
+    b, c = fields["kp_s"].shape
+    kp_s = fields["kp_s"].reshape(-1)
+    hist = descriptor_hist_bucketed(
+        gauss_flat, kp_s - 1 + _frame_offsets(b, win_planes, c, gauss_flat.device),
+        kp_s, fields["xi"].reshape(-1), fields["yi"].reshape(-1),
+        fields["kp_sc"].reshape(-1), fields["kp_angle"].reshape(-1), None,
+        h, w, desc_ops.PAD_DESC, cfg, live=live.reshape(-1))
+    return desc_ops.finalize_descriptor(hist, cfg).reshape(b, c, -1)
+
+
+def _detect_octave_plain(gauss: torch.Tensor, octave: int, cfg: SiftConfig,
+                         dog: torch.Tensor | None = None):
+    """The plain branch of models/extractor.py:_detect_octave (pure torch
+    ops, no kernel), batched over frames: the tiny top octaves. gauss (B,
+    S+3, h, w) holds every level of the octave; dog (B, S+2, h, w) defaults
+    to the differences of adjacent levels."""
     b, n_lv, h, w = gauss.shape
     dev = gauss.device
     k, k2, m = octave_capacities(h, w, cfg)
@@ -185,7 +240,8 @@ def _detect_octave(gauss: torch.Tensor, octave: int, cfg: SiftConfig):
     gp = desc_ops.pad_stack_for_kernels(gauss)
     hp, wp = gp.shape[-2], gp.shape[-1]
     gflat = gp.reshape(b * n_lv, hp, wp)
-    dog = gauss[:, 1:] - gauss[:, :-1]
+    if dog is None:
+        dog = gauss[:, 1:] - gauss[:, :-1]
     mask = ext_ops.extrema_mask(dog, cfg)
     s0, y0, x0, valid, n_cand = ext_ops.find_candidates(mask, k)
     n_dog = n_lv - 1
@@ -213,14 +269,107 @@ def _detect_octave(gauss: torch.Tensor, octave: int, cfg: SiftConfig):
             "n_survivors": n_surv, "n_emitted": n_emit}
 
 
-def _extract_batch_fused(imgs_u8: torch.Tensor, n_octaves: int,
-                         cfg: SiftConfig) -> dict:
-    """(B, H, W) u8 on the target device -> padded result dict
-    (models/extractor.py:_extract_batch_fused, budget=None)."""
+def _detect_octave(gauss, dog, octave: int, cfg: SiftConfig, padded=None,
+                   hw=None):
+    """Single-frame single-octave detection (models/extractor.py:
+    _detect_octave without row_range and describe=False). gauss (S+3, h, w)
+    and dog (S+2, h, w) or None, or padded = (gauss_slots, dog_p, slot_off)
+    from the per-level pyramid kernel K9 with hw = (h, w): gauss_slots[k]
+    holds level k + slot_off. The kernel branch runs when the padded plane is at
+    least 256 wide, whatever the device; else the plain branch."""
+    if padded is not None:
+        gauss_padded, dog_p, slot_off = padded
+        h, w = hw
+    else:
+        h, w = gauss.shape[-2], gauss.shape[-1]
+        slot_off = 0
+        gauss_padded = desc_ops.pad_stack_for_kernels(gauss)
+    if gauss_padded.shape[-1] < 256:
+        r = _detect_octave_plain(gauss[None], octave, cfg,
+                                 None if dog is None else dog[None])
+        return {k: v[0] for k, v in r.items()}
+    k, k2, m = octave_capacities(h, w, cfg)
     p = desc_ops.PAD_DESC
-    sigmas = cfg.octave_sigmas()
-    initial = create_seed_image(imgs_u8, cfg)                # (B, h, w)
+    bd = cfg.image_border
+    n_bins = cfg.n_orientation_bins
+    if padded is None:
+        # the precomputed layout: the DoG of the zero-padded stack
+        dog_p = gauss_padded[1:] - gauss_padded[:-1]
+    bounds = (p + bd, p + h - bd, p + bd, p + w - bd)
+    hp, wp = dog_p.shape[-2], dog_p.shape[-1]
+    if hp % 128 == 0 and (wp <= 1536 or wp % 1024 == 0):
+        words = extrema_words_single(dog_p, bounds, cfg)
+        s0, y0, x0, valid, n_cand = ext_ops.find_candidates_words(words, k)
+    else:
+        mask = ext_ops.extrema_mask(dog_p, cfg, bounds=bounds)
+        s0, y0, x0, valid, n_cand = ext_ops.find_candidates(mask, k)
+    rows = _refine_auto(dog_p, s0, y0, x0, valid, p, h, w, cfg)
+    surv, svalid, n_surv = _survivors(rows, valid[None], 1, k, k2, p)
+    surv["kp_scale"] = ori_ops.kp_scale_of(surv["s"], surv["off_s"], cfg)
+
+    s = surv["s"][0]
+    hist = orientation_histograms_bucketed(
+        gauss_padded, s - slot_off, s, surv["y"][0], surv["x"][0],
+        surv["kp_scale"][0], n_surv[0], h, w, p, cfg)
+    angles, emit = ori_ops.orientation_peaks(hist, cfg)
+    ci, kp_angle, evalid, n_emit = _emit(
+        angles.reshape(1, k2, n_bins), emit.reshape(1, k2, n_bins), svalid, m)
+    kps, d_in = _keypoints(surv, ci, kp_angle, evalid, octave, cfg)
+    kp_s = d_in["kp_s"][0]
+    hist128 = descriptor_hist_bucketed(
+        gauss_padded, kp_s - slot_off, kp_s,
+        rust_round(d_in["x_oct"][0]).to(torch.int32),
+        rust_round(d_in["y_oct"][0]).to(torch.int32), d_in["kp_sc"][0],
+        kp_angle[0], n_emit[0], h, w, p, cfg)
+    return {"kps": kps[0], "desc": desc_ops.finalize_descriptor(hist128, cfg),
+            "valid": evalid[0], "n_candidates": n_cand, "n_survivors": n_surv[0],
+            "n_emitted": n_emit[0]}
+
+
+COUNTERS = ("n_candidates", "n_survivors", "n_emitted")
+
+
+def _concat(out: list[dict], dim: int, keys=("kps", "desc", "valid")) -> dict:
+    """Per-octave results -> rows concatenated along `dim` (0 for one
+    frame, 1 for a batch) and the counters stacked there (n_octaves)."""
+    res = {key: torch.cat([r[key] for r in out], dim) for key in keys}
+    res.update({key: torch.stack([r[key] for r in out], dim) for key in COUNTERS})
+    return res
+
+
+def _extract_single(img_u8: torch.Tensor, n_octaves: int, cfg: SiftConfig):
+    """The per-frame pipeline (models/extractor.py:_extract_single): (H, W)
+    u8 -> one frame's result dict. Octaves whose padded plane is at least
+    256 x 256 are built level by level in K9 and detected on its slots;
+    the others blur in plain torch ops."""
+    p = desc_ops.PAD_DESC
+    initial = create_seed_image(img_u8[None], cfg)[0]
     out = []
+    for o in range(n_octaves):
+        h, w = initial.shape
+        h_pad, w_pad = padded_dims(h, w)
+        if h_pad >= 256 and w_pad >= 256:
+            base = reflect_pad_image(initial, p, w_pad - w - 2 * p,
+                                     h_pad - h - 2 * p).contiguous()
+            g_slots, dog_p = build_octave_padded(base, cfg)
+            out.append(_detect_octave(None, None, o, cfg,
+                                      padded=(g_slots, dog_p, 1), hw=(h, w)))
+            nxt = g_slots[cfg.scales_per_octave - 1]
+            initial = nxt[p:p + (h // 2) * 2:2, p:p + (w // 2) * 2:2]
+        else:
+            levels = octave_levels(initial, cfg)
+            out.append(_detect_octave(torch.stack(levels), None, o, cfg))
+            initial = resize_nearest_half(levels[cfg.scales_per_octave])
+    return _concat(out, 0)
+
+
+def _extract_batch_fused(imgs_u8: torch.Tensor, n_octaves: int,
+                         cfg: SiftConfig, budget: int | None = None) -> dict:
+    """(B, H, W) u8 on the target device -> padded result dict
+    (models/extractor.py:_extract_batch_fused)."""
+    p = desc_ops.PAD_DESC
+    initial = create_seed_image(imgs_u8, cfg)                # (B, h, w)
+    out, hw_list = [], []
     for o in range(n_octaves):
         h, w = initial.shape[-2], initial.shape[-1]
         h_pad, w_pad = padded_dims(h, w)
@@ -228,20 +377,97 @@ def _extract_batch_fused(imgs_u8: torch.Tensor, n_octaves: int,
             base = reflect_pad_image(initial, p, w_pad - w - 2 * p,
                                      h_pad - h - 2 * p).contiguous()
             g, d = octave_fused(base, cfg)
-            out.append(_detect_octave_batched(g, d, o, cfg, (h, w)))
+            out.append(_detect_octave_batched(g, d, o, cfg, (h, w),
+                                              describe=budget is None))
             nxt = g[:, cfg.scales_per_octave - 1]
             initial = nxt[:, p:p + (h // 2) * 2:2, p:p + (w // 2) * 2:2]
         else:
-            levels = [initial]
-            for sig in sigmas[1:]:
-                levels.append(gaussian_blur(levels[-1], sig))
-            out.append(_detect_octave(torch.stack(levels, 1), o, cfg))
-            initial = resize_nearest_half(levels[len(levels) - 3])
-    res = {key: torch.cat([r[key] for r in out], 1)
-           for key in ("kps", "desc", "valid")}
-    for key in ("n_candidates", "n_survivors", "n_emitted"):
-        res[key] = torch.stack([r[key] for r in out], 1)
-    return res
+            levels = octave_levels(initial, cfg)
+            out.append(_detect_octave_plain(torch.stack(levels, 1), o, cfg))
+            initial = resize_nearest_half(levels[cfg.scales_per_octave])
+        hw_list.append((h, w))
+    if budget is not None:
+        return _assemble_budget(out, hw_list, budget, cfg)
+    return _concat(out, 1)
+
+
+def _gather_rows(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """a (B, N, ...) at idx (B, C) -> (B, C, ...)."""
+    return torch.gather(a, 1, idx.reshape(*idx.shape, *[1] * (a.dim() - 2))
+                        .expand(*idx.shape, *a.shape[2:]))
+
+
+def _top_rows(kps, valid, budget: int):
+    """Each frame's response top-`budget` over (B, N) rows: (kps of the
+    chosen rows, zero where empty; their indices; their validity)."""
+    neg_inf = f32(float("-inf"), kps)
+    resp = torch.where(valid, kps[..., 4], neg_inf)
+    top_val, top_idx = stable_top_k(resp, min(budget, resp.shape[1]))
+    tvalid = top_val > neg_inf
+    out_kps = torch.where(tvalid[..., None], _gather_rows(kps, top_idx),
+                          torch.zeros((), dtype=F32, device=kps.device))
+    return out_kps, top_idx, tvalid
+
+
+def _budget_result(kps, desc, top_idx, tvalid, full: dict) -> dict:
+    """The budgeted result: the chosen rows, src_idx, and the counters of
+    the full result."""
+    src = torch.where(tvalid, top_idx, torch.full_like(top_idx, -1))
+    return {"kps": kps, "desc": desc, "valid": tvalid,
+            "src_idx": src.to(torch.int32), **{k: full[k] for k in COUNTERS}}
+
+
+def _assemble_budget(out, hw_list, budget: int, cfg: SiftConfig) -> dict:
+    """Each frame's response top-K across octaves, then descriptors of only
+    the chosen keypoints (the reference truncates before describing,
+    lib.rs:156-161; models/extractor.py:_assemble_budget). Octaves that
+    already carry descriptors (the tiny ones) are gathered; the fused ones
+    describe their chosen subset in one K6′ launch each. Rows come
+    response-sorted, ties by emission index; src_idx maps each row back to
+    the emission order. Nothing here waits for the host."""
+    full = _concat(out, 1, keys=("kps", "valid"))
+    kps_all = full["kps"]
+    out_kps, top_idx, tvalid = _top_rows(kps_all, full["valid"], budget)
+    b, n_top = top_idx.shape
+    out_desc = torch.zeros((b, n_top, cfg.descriptor_size), dtype=torch.uint8,
+                           device=kps_all.device)
+    off = 0
+    for r, (h, w) in zip(out, hw_list):
+        m_o = r["valid"].shape[1]
+        member = tvalid & (top_idx >= off) & (top_idx < off + m_o)
+        local = torch.clamp(top_idx - off, 0, m_o - 1)
+        if "desc" in r:
+            d_rows = _gather_rows(r["desc"], local)
+        else:
+            c = min(n_top, m_o)
+            midx, mvalid, _ = compact_indices(member, c)
+            sel = torch.gather(local, 1, midx)
+            fields = {k: torch.gather(v, 1, sel) for k, v in r["desc_in"].items()}
+            desc_c = _describe_subset(*r["win_ctx"], fields, mvalid, cfg, h, w)
+            rank = torch.clamp(torch.cumsum(member, 1) - 1, 0, c - 1)
+            d_rows = _gather_rows(desc_c, rank)
+        out_desc = torch.where(member[..., None], d_rows, out_desc)
+        off += m_o
+    return _budget_result(out_kps, out_desc, top_idx, tvalid, full)
+
+
+def _truncate_result(res: dict, budget: int) -> dict:
+    """Top-K truncation of a full (described) batched result, with the
+    output of _assemble_budget (models/extractor.py:_truncate_result)."""
+    kps, top_idx, tvalid = _top_rows(res["kps"], res["valid"], budget)
+    desc = torch.where(tvalid[..., None], _gather_rows(res["desc"], top_idx),
+                       torch.zeros((), dtype=torch.uint8, device=kps.device))
+    return _budget_result(kps, desc, top_idx, tvalid, res)
+
+
+def _images(imgs_u8, dev) -> torch.Tensor:
+    if isinstance(imgs_u8, torch.Tensor):
+        return imgs_u8.to(device=dev, dtype=torch.uint8)
+    return torch.as_tensor(np.asarray(imgs_u8, dtype=np.uint8), device=dev)
+
+
+def _n_octaves(h: int, w: int, cfg: SiftConfig) -> int:
+    return cfg.n_octaves(h * cfg.inv_delta_min, w * cfg.inv_delta_min)
 
 
 def extract_batch(imgs_u8, config: SiftConfig = DEFAULT_CONFIG,
@@ -249,38 +475,62 @@ def extract_batch(imgs_u8, config: SiftConfig = DEFAULT_CONFIG,
     """Batched extraction: (B, H, W) u8 -> padded result dict on `device`:
     kps (B, N, 5) f32 [x, y, size, angle, response], desc (B, N, 128) u8,
     valid (B, N) bool, and the per-octave counters n_candidates /
-    n_survivors / n_emitted (B, n_octaves)."""
-    if features_limit is not None:
-        raise NotImplementedError(
-            "features_limit is not ported yet (ROADMAP.md Queue A)")
+    n_survivors / n_emitted (B, n_octaves).
+
+    features_limit: each frame's response top-K, taken before the
+    descriptors as the reference does (lib.rs:156-161). Budgeted rows are
+    response-sorted (N = the limit, or fewer rows if the frame has fewer)
+    and carry src_idx (B, N) int32, the emission-order index or -1."""
     check_supported(config)
     dev = resolve_device(device)
-    if isinstance(imgs_u8, torch.Tensor):
-        imgs = imgs_u8.to(device=dev, dtype=torch.uint8)
-    else:
-        imgs = torch.as_tensor(np.asarray(imgs_u8, dtype=np.uint8), device=dev)
-    h, w = imgs.shape[-2], imgs.shape[-1]
-    n_oct = config.n_octaves(h * config.inv_delta_min, w * config.inv_delta_min)
-    return _extract_batch_fused(imgs, n_oct, config)
+    imgs = _images(imgs_u8, dev)
+    n_oct = _n_octaves(imgs.shape[-2], imgs.shape[-1], config)
+    return _extract_batch_fused(imgs, n_oct, config, features_limit)
 
 
 def extract(img_u8, features_limit: int | None = None,
             config: SiftConfig = DEFAULT_CONFIG, device="cuda"):
     """Single-image extraction (the reference's sift(), lib.rs:71-81):
     (keypoints (N, 5) f32 in image coordinates, descriptors (N, 128) u8) as
-    numpy arrays, octave-major scan order."""
+    numpy arrays, octave-major scan order; response-sorted when the limit
+    truncates."""
     res = extract_batch(np.asarray(img_u8)[None], config, features_limit,
                         device)
     valid = res["valid"][0].cpu().numpy()
-    return (res["kps"][0].cpu().numpy()[valid],
-            res["desc"][0].cpu().numpy()[valid])
+    kps = res["kps"][0].cpu().numpy()[valid]
+    desc = res["desc"][0].cpu().numpy()[valid]
+    if (features_limit is not None
+            and int(res["n_emitted"][0].sum()) <= features_limit):
+        # the reference sorts by response only when the limit truncates
+        # (lib.rs:156-161): restore the emission order through src_idx
+        order = np.argsort(res["src_idx"][0].cpu().numpy()[valid], kind="stable")
+        kps, desc = kps[order], desc[order]
+    return kps, desc
 
 
-def precompute(imgs_u8, config: SiftConfig = DEFAULT_CONFIG):
-    raise NotImplementedError(
-        "precompute is not ported yet (ROADMAP.md Queue A)")
+def precompute(imgs_u8, config: SiftConfig = DEFAULT_CONFIG, device="cuda"):
+    """The pyramid stage alone (the reference's precompute_images,
+    lib.rs:131-146): (B, H, W) u8 -> (Gaussian octaves, DoG octaves), lists
+    of (B, S+3, H_o, W_o) and (B, S+2, H_o, W_o) f32 tensors on `device`.
+    Plain torch ops, as the JAX package's precompute is plain XLA."""
+    check_supported(config)
+    imgs = _images(imgs_u8, resolve_device(device))
+    seed = create_seed_image(imgs, config)
+    octaves = build_scale_space(
+        seed, _n_octaves(imgs.shape[-2], imgs.shape[-1], config), config)
+    return octaves, build_dog(octaves)
 
 
-def extract_with_precomputed(octaves, dogs, config: SiftConfig = DEFAULT_CONFIG):
-    raise NotImplementedError(
-        "extract_with_precomputed is not ported yet (ROADMAP.md Queue A)")
+def extract_with_precomputed(octaves, dogs, config: SiftConfig = DEFAULT_CONFIG,
+                             device="cuda") -> dict:
+    """Detection and description on a precomputed pyramid (the reference's
+    sift_with_precomputed, lib.rs:147-177): the padded result dict of
+    extract_batch, frame by frame through the single-frame _detect_octave."""
+    check_supported(config)
+    dev = resolve_device(device)
+    octaves = [torch.as_tensor(o).to(dev) for o in octaves]
+    dogs = [torch.as_tensor(d).to(dev) for d in dogs]
+    frames = [_concat([_detect_octave(g[i], d[i], o, config)
+                       for o, (g, d) in enumerate(zip(octaves, dogs))], 0)
+              for i in range(octaves[0].shape[0])]
+    return {k: torch.stack([f[k] for f in frames]) for k in frames[0]}

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels of the port, one module per kernel family.
 
 Each module holds the kernel's wrapper, its plain PyTorch version and a note
-naming the TPU kernel it replaces. A wrapper runs the plain version for a
+naming the TPU kernel it replaces. IDs are those of PERF.md's kernel table;
+a primed ID (K2′, K5′, K6′) is the single-frame or count-prefix variant of
+the same TPU `_kernel`, served by the same CUDA kernel. A wrapper runs the plain version for a
 CPU tensor and launches the kernel for a CUDA tensor (or raises); the
 launch counts live in `build.LAUNCHES`.
 """
@@ -20,4 +22,12 @@ KERNELS = {
            "sift_features_tpu/ops/pallas/orientation_packed.py:421"),
     "K6": ("sift_features_tpu_torch/csrc/descriptor.cu",
            "sift_features_tpu/ops/pallas/descriptor_packed.py:415"),
+    "K2′": ("sift_features_tpu_torch/csrc/extrema.cu",
+            "sift_features_tpu/ops/pallas/extrema_kernel.py:133"),
+    "K5′": ("sift_features_tpu_torch/csrc/orientation.cu",
+            "sift_features_tpu/ops/pallas/orientation_packed.py:345"),
+    "K6′": ("sift_features_tpu_torch/csrc/descriptor.cu",
+            "sift_features_tpu/ops/pallas/descriptor_packed.py:358"),
+    "K9": ("sift_features_tpu_torch/csrc/pyramid.cu",
+           "sift_features_tpu/ops/pallas/pyramid_kernel.py:128"),
 }

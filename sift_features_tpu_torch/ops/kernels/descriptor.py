@@ -1,10 +1,16 @@
-"""K6: 4x4x8 descriptor histograms over a rotated window.
+"""K6 and K6′: 4x4x8 descriptor histograms over a rotated window.
 
-Replaces sift_features_tpu/ops/pallas/descriptor_packed.py:
-descriptor_hist_packed_masked (`_kernel`), dispatched per scale bucket by
-ops/pallas/descriptor_kernel.py:descriptor_hist_masked. One launch serves
-every scale; the window bound R_DESC_MAX = 39 is asserted in the kernel
-(the radius is at most 38 on the main path). The CUDA kernel is
+K6 (`descriptor_hist`, a per-lane live flag) replaces
+sift_features_tpu/ops/pallas/descriptor_packed.py:descriptor_hist_packed_masked,
+dispatched per scale bucket by ops/pallas/descriptor_kernel.py:
+descriptor_hist_masked. K6′ (`descriptor_hist_prefix`, lane i live iff
+i < count, the count a device tensor so no caller syncs the host) replaces
+descriptor_packed.py:descriptor_hist_packed, dispatched per bucket by
+descriptor_kernel.py:descriptor_hist_bucketed; `descriptor_hist_bucketed`
+here is that dispatcher's counterpart. Both are one `_kernel` on the TPU and
+one CUDA kernel here. One launch serves every scale; the window bound
+R_DESC_MAX = 39 is asserted in the kernel (the radius is at most 38 on the
+main path). The CUDA kernel is
 csrc/descriptor.cu; its note gives the bound and the design.
 `finalize_descriptor` (ops/descriptor.py) turns the raw histograms into u8.
 
@@ -28,6 +34,7 @@ from ...config import SiftConfig
 from ..descriptor import DEG2RAD_F32, R_DESC_MAX
 from ..orientation import window_index
 from ..util import atan2_f32, f32, round_half_away, sqrt_f32
+from ...utils.compact import compact_indices
 from . import build
 
 F32 = torch.float32
@@ -41,7 +48,6 @@ def _params(cfg: SiftConfig) -> dict:
         rad2deg=np.float32(180.0 / np.pi),
         bin_step=np.float32(np.float32(n_bins) / np.float32(360.0)),
         wscale=np.float32(-2.0) / np.float32(n_hist * n_hist))
-
 
 
 def descriptor_plain(gauss_flat: torch.Tensor, plane, xi, yi, kp_scale, angle,
@@ -154,6 +160,38 @@ def _hist(gauss_flat, plane, xi, yi, kp_scale, angle, live, h, w, pad, cfg):
     return hist
 
 
+def _launch(gauss_flat, plane, xi, yi, kp_scale, angle, live, count, h, w,
+            pad, cfg, name):
+    """One launch of the CUDA kernel: liveness from `live` (K6) or from
+    the device int `count` (K6′)."""
+    L, hp, wp = gauss_flat.shape
+    plane = torch.clamp(plane, 0, L - 1).to(torch.int32).contiguous()
+    yi = torch.clamp(yi, 0, h - 1).to(torch.int32).contiguous()
+    xi = torch.clamp(xi, 0, w - 1).to(torch.int32).contiguous()
+    flag = (live if count is None else count.reshape(1)).to(torch.int32).contiguous()
+    kp_scale = kp_scale.to(F32).contiguous()
+    angle = angle.to(F32).contiguous()
+    build.require_cuda(name, gauss_flat, plane, xi, yi, kp_scale, angle, flag)
+    M = plane.shape[0]
+    hist = torch.empty((M, cfg.descriptor_size), dtype=F32,
+                       device=gauss_flat.device)
+    prm = _params(cfg)
+    entry = "sift_descriptor" if count is None else "sift_descriptor_prefix"
+    fn = build.bind("descriptor", entry,
+                    [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
+                    + [ctypes.c_int] * 7 + [ctypes.c_float] * 6
+                    + [ctypes.c_void_p])
+    rc = fn(build.ptr(gauss_flat), hp, wp, build.ptr(plane), build.ptr(yi),
+            build.ptr(xi), build.ptr(kp_scale), build.ptr(angle),
+            build.ptr(flag), build.ptr(hist), M, h, w, pad, R_DESC_MAX,
+            cfg.descriptor_n_histograms, cfg.descriptor_n_bins,
+            float(np.float32(cfg.lambda_descr)), float(prm["sqrt2"]),
+            float(prm["deg2rad"]), float(prm["rad2deg"]),
+            float(prm["bin_step"]), float(prm["wscale"]),
+            build.stream_ptr(gauss_flat))
+    return hist, rc
+
+
 def descriptor_hist(gauss_flat: torch.Tensor, plane, xi, yi, kp_scale, angle,
                     live, h: int, w: int, pad: int,
                     cfg: SiftConfig) -> torch.Tensor:
@@ -162,31 +200,51 @@ def descriptor_hist(gauss_flat: torch.Tensor, plane, xi, yi, kp_scale, angle,
     if gauss_flat.device.type == "cpu":
         return descriptor_plain(gauss_flat, plane, xi, yi, kp_scale, angle,
                                 live, h, w, pad, cfg)
-    L, hp, wp = gauss_flat.shape
-    plane = torch.clamp(plane, 0, L - 1).to(torch.int32).contiguous()
-    yi = torch.clamp(yi, 0, h - 1).to(torch.int32).contiguous()
-    xi = torch.clamp(xi, 0, w - 1).to(torch.int32).contiguous()
-    live = live.to(torch.int32).contiguous()
-    kp_scale = kp_scale.to(F32).contiguous()
-    angle = angle.to(F32).contiguous()
-    build.require_cuda("descriptor_hist", gauss_flat, plane, xi, yi, kp_scale,
-                       angle, live)
-    M = plane.shape[0]
-    hist = torch.empty((M, cfg.descriptor_size), dtype=F32,
-                       device=gauss_flat.device)
-    prm = _params(cfg)
-    fn = build.bind("descriptor", "sift_descriptor",
-                    [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
-                    + [ctypes.c_int] * 7 + [ctypes.c_float] * 6
-                    + [ctypes.c_void_p])
-    rc = fn(build.ptr(gauss_flat), hp, wp, build.ptr(plane), build.ptr(yi),
-            build.ptr(xi), build.ptr(kp_scale), build.ptr(angle),
-            build.ptr(live), build.ptr(hist), M, h, w, pad, R_DESC_MAX,
-            cfg.descriptor_n_histograms, cfg.descriptor_n_bins,
-            float(np.float32(cfg.lambda_descr)), float(prm["sqrt2"]),
-            float(prm["deg2rad"]), float(prm["rad2deg"]),
-            float(prm["bin_step"]), float(prm["wscale"]),
-            build.stream_ptr(gauss_flat))
+    hist, rc = _launch(gauss_flat, plane, xi, yi, kp_scale, angle, live, None,
+                       h, w, pad, cfg, "descriptor_hist")
     build.check(rc, "K6 descriptor")
     build.count_launch("K6")
     return hist
+
+
+def descriptor_hist_prefix(gauss_flat: torch.Tensor, plane, xi, yi, kp_scale,
+                           angle, count, h: int, w: int, pad: int,
+                           cfg: SiftConfig) -> torch.Tensor:
+    """K6′ wrapper: lane i is live iff i < count, a 0-d integer tensor on
+    gauss_flat's device (descriptor_packed.py:descriptor_hist_packed). The
+    plain version for a CPU tensor; the CUDA kernel, which reads the count
+    on the card, for a CUDA tensor (or an error)."""
+    if gauss_flat.device.type == "cpu":
+        live = torch.arange(plane.shape[0]) < count
+        return descriptor_plain(gauss_flat, plane, xi, yi, kp_scale, angle,
+                                live, h, w, pad, cfg)
+    hist, rc = _launch(gauss_flat, plane, xi, yi, kp_scale, angle, None, count,
+                       h, w, pad, cfg, "descriptor_hist_prefix")
+    build.check(rc, "K6′ descriptor_prefix")
+    build.count_launch("K6′")
+    return hist
+
+
+def descriptor_hist_bucketed(gauss_flat: torch.Tensor, s_img, s_level, xi, yi,
+                             kp_scale, angle, count, h: int, w: int, pad: int,
+                             cfg: SiftConfig, live=None) -> torch.Tensor:
+    """Counterpart of ops/pallas/descriptor_kernel.py:descriptor_hist_bucketed
+    -> raw hist (M, 128) f32. s_img (M,) is the plane to sample, s_level
+    (M,) the scale level in [1, S] (the JAX bucket key: lanes outside it
+    stay zero); liveness is lane < count, or `live` (M,) bool when given.
+    The JAX dispatcher compacts and launches per scale bucket; one K6′
+    launch here serves every radius, so the live lanes are compacted once
+    into a count prefix (count kept on the device) and restored by rank.
+    Per-keypoint output is the same."""
+    M = s_img.shape[0]
+    in_range = (s_level >= 1) & (s_level <= cfg.scales_per_octave)
+    if live is None:
+        hist = descriptor_hist_prefix(gauss_flat, s_img, xi, yi, kp_scale,
+                                      angle, count, h, w, pad, cfg)
+        return torch.where(in_range[:, None], hist, torch.zeros_like(hist))
+    mask = live.bool() & in_range
+    idx, _, n = compact_indices(mask, M)
+    hb = descriptor_hist_prefix(gauss_flat, s_img[idx], xi[idx], yi[idx],
+                                kp_scale[idx], angle[idx], n, h, w, pad, cfg)
+    rank = torch.clamp(torch.cumsum(mask, 0) - 1, min=0)
+    return torch.where(mask[:, None], hb[rank], torch.zeros_like(hb))

@@ -1,7 +1,9 @@
-"""K2: 3x3x3 DoG extremum test packed into int32 words.
+"""K2 and K2′: 3x3x3 DoG extremum test packed into int32 words.
 
-Replaces sift_features_tpu/ops/pallas/extrema_kernel.py:extrema_words_batched
-(`_kernel`). The CUDA kernel is csrc/extrema.cu; its note gives the bound
+K2 (`extrema_words`, a frame batch) replaces
+sift_features_tpu/ops/pallas/extrema_kernel.py:extrema_words_batched and K2′
+(`extrema_words_single`, one frame) replaces extrema_kernel.py:extrema_words;
+both are one `_kernel` on the TPU. The CUDA kernel is csrc/extrema.cu; its note gives the bound
 (memory: one read of the DoG stack) and the design (one thread per pixel, a
 warp ballot per 32 columns).
 """
@@ -32,16 +34,12 @@ def extrema_words_plain(dog: torch.Tensor, bounds, cfg: SiftConfig):
     return pack_words(extrema_mask(dog, cfg, bounds=bounds))
 
 
-def extrema_words(dog: torch.Tensor, bounds, cfg: SiftConfig):
-    """K2 wrapper: the plain version for a CPU tensor; the CUDA kernel for a
-    CUDA tensor (or an error)."""
-    if dog.device.type == "cpu":
-        return extrema_words_plain(dog, bounds, cfg)
-    build.require_cuda("extrema_words", dog)
+def _launch(dog: torch.Tensor, bounds, cfg: SiftConfig, name: str):
+    build.require_cuda(name, dog)
     b, n_p, hp, wp = dog.shape
     n_s = cfg.scales_per_octave
     if dog.dtype != torch.float32 or n_p != n_s + 2 or wp % 128:
-        raise ValueError("extrema_words: dog must be (B, S+2, Hp, Wp) float32 "
+        raise ValueError(f"{name}: dog must be (S+2, Hp, Wp) float32 per frame "
                          "with Wp % 128 == 0")
     words = torch.empty((b, n_s, hp, wp // 32), dtype=torch.int32,
                         device=dog.device)
@@ -51,6 +49,27 @@ def extrema_words(dog: torch.Tensor, bounds, cfg: SiftConfig):
     y0, y1, x0, x1 = (int(v) for v in bounds)
     rc = fn(build.ptr(dog), build.ptr(words), b, n_s, hp, wp, y0, y1, x0, x1,
             build.stream_ptr(dog))
+    return words, rc
+
+
+def extrema_words(dog: torch.Tensor, bounds, cfg: SiftConfig):
+    """K2 wrapper: dog (B, S+2, Hp, Wp). The plain version for a CPU tensor;
+    the CUDA kernel for a CUDA tensor (or an error)."""
+    if dog.device.type == "cpu":
+        return extrema_words_plain(dog, bounds, cfg)
+    words, rc = _launch(dog, bounds, cfg, "extrema_words")
     build.check(rc, "K2 extrema_words")
     build.count_launch("K2")
     return words
+
+
+def extrema_words_single(dog: torch.Tensor, bounds, cfg: SiftConfig):
+    """K2′ wrapper: one frame's dog (S+2, Hp, Wp) -> (S, Hp, Wp // 32)
+    int32, served by the K2 kernel as a batch of one. The plain version for
+    a CPU tensor; the CUDA kernel for a CUDA tensor (or an error)."""
+    if dog.device.type == "cpu":
+        return extrema_words_plain(dog[None], bounds, cfg)[0]
+    words, rc = _launch(dog[None], bounds, cfg, "extrema_words_single")
+    build.check(rc, "K2′ extrema_words_single")
+    build.count_launch("K2′")
+    return words[0]

@@ -1,10 +1,16 @@
-"""K5: 36-bin orientation histograms with in-kernel peaks.
+"""K5 and K5′: 36-bin orientation histograms with in-kernel peaks.
 
-Replaces sift_features_tpu/ops/pallas/orientation_packed.py:
-orientation_histograms_packed_masked (`_kernel`), dispatched per scale
-bucket by ops/pallas/orientation_kernel.py:orientation_histograms_masked.
-One launch serves every scale: the bucket radius {1: 10, 2: 13, 3: 16} is
-only a buffer bound, and the per-keypoint radius round_half_away(4.5 *
+K5 (`orientation_hist_peaks`, a per-lane live flag) replaces
+sift_features_tpu/ops/pallas/orientation_packed.py:
+orientation_histograms_packed_masked, dispatched per scale bucket by
+ops/pallas/orientation_kernel.py:orientation_histograms_masked. K5′
+(`orientation_hist_prefix`, lane i live iff i < count, the count a device
+tensor) replaces orientation_packed.py:orientation_histograms_packed,
+dispatched per bucket by orientation_kernel.py:
+orientation_histograms_bucketed; `orientation_histograms_bucketed` here is
+that dispatcher's counterpart for count-prefix input. Both are one
+`_kernel` on the TPU and one CUDA kernel here. One launch serves every
+scale: the bucket radius {1: 10, 2: 13, 3: 16} is only a buffer bound, and the per-keypoint radius round_half_away(4.5 *
 scale) is at most R_ORI_MAX = 16 on the main path. The CUDA kernel is
 csrc/orientation.cu; its note gives the bound and the design.
 
@@ -42,7 +48,6 @@ def _params(cfg: SiftConfig):
     return (np.float32(3.0) * np.float32(cfg.lambda_ori),
             np.float32(cfg.n_orientation_bins)
             / (np.float32(np.pi) * np.float32(2.0)))
-
 
 
 def first_peaks(hist_smoothed: torch.Tensor, cfg: SiftConfig):
@@ -123,6 +128,38 @@ def _raw_hist(gauss_flat, plane, y, x, kp_scale, live, h, w, pad, cfg):
     return raw
 
 
+def _launch(gauss_flat, plane, y, x, kp_scale, live, count, h, w, pad, cfg,
+            name):
+    """One launch of the CUDA kernel: liveness from `live` (K5) or from
+    the device int `count` (K5′)."""
+    L, hp, wp = gauss_flat.shape
+    plane = torch.clamp(plane, 0, L - 1).to(torch.int32).contiguous()
+    y = torch.clamp(y, 0, h - 1).to(torch.int32).contiguous()
+    x = torch.clamp(x, 0, w - 1).to(torch.int32).contiguous()
+    flag = (live if count is None else count.reshape(1)).to(torch.int32).contiguous()
+    kp_scale = kp_scale.to(F32).contiguous()
+    build.require_cuda(name, gauss_flat, plane, y, x, kp_scale, flag)
+    K = plane.shape[0]
+    n_bins = cfg.n_orientation_bins
+    kw = dict(device=gauss_flat.device)
+    hist = torch.empty((K, n_bins), dtype=F32, **kw)
+    ang = torch.empty((K, N_PEAKS_CAP), dtype=F32, **kw)
+    npk = torch.empty((K,), dtype=torch.int32, **kw)
+    radius_factor, bstep = _params(cfg)
+    entry = "sift_orientation" if count is None else "sift_orientation_prefix"
+    fn = build.bind("orientation", entry,
+                    [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                    + [ctypes.c_int] * 6 + [ctypes.c_float] * 4
+                    + [ctypes.c_void_p])
+    rc = fn(build.ptr(gauss_flat), hp, wp, build.ptr(plane), build.ptr(y),
+            build.ptr(x), build.ptr(kp_scale), build.ptr(flag), build.ptr(hist),
+            build.ptr(ang), build.ptr(npk), K, h, w, pad, n_bins, N_PEAKS_CAP,
+            float(radius_factor), float(np.float32(cfg.lambda_ori)),
+            float(np.float32(cfg.orientation_localmax_ratio)), float(bstep),
+            build.stream_ptr(gauss_flat))
+    return (hist, ang, npk), rc
+
+
 def orientation_hist_peaks(gauss_flat: torch.Tensor, plane, y, x, kp_scale,
                            live, h: int, w: int, pad: int, cfg: SiftConfig):
     """K5 wrapper -> (raw hist (K, n_bins) f32, angles (K, N_PEAKS_CAP) f32,
@@ -131,31 +168,48 @@ def orientation_hist_peaks(gauss_flat: torch.Tensor, plane, y, x, kp_scale,
     if gauss_flat.device.type == "cpu":
         return orientation_plain(gauss_flat, plane, y, x, kp_scale, live, h, w,
                                  pad, cfg)
-    L, hp, wp = gauss_flat.shape
-    plane = torch.clamp(plane, 0, L - 1).to(torch.int32).contiguous()
-    y = torch.clamp(y, 0, h - 1).to(torch.int32).contiguous()
-    x = torch.clamp(x, 0, w - 1).to(torch.int32).contiguous()
-    live = live.to(torch.int32).contiguous()
-    kp_scale = kp_scale.to(F32).contiguous()
-    build.require_cuda("orientation_hist_peaks", gauss_flat, plane, y, x,
-                       kp_scale, live)
-    K = plane.shape[0]
-    n_bins = cfg.n_orientation_bins
-    kw = dict(device=gauss_flat.device)
-    hist = torch.empty((K, n_bins), dtype=F32, **kw)
-    ang = torch.empty((K, N_PEAKS_CAP), dtype=F32, **kw)
-    npk = torch.empty((K,), dtype=torch.int32, **kw)
-    radius_factor, bstep = _params(cfg)
-    fn = build.bind("orientation", "sift_orientation",
-                    [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
-                    + [ctypes.c_int] * 6 + [ctypes.c_float] * 4
-                    + [ctypes.c_void_p])
-    rc = fn(build.ptr(gauss_flat), hp, wp, build.ptr(plane), build.ptr(y),
-            build.ptr(x), build.ptr(kp_scale), build.ptr(live), build.ptr(hist),
-            build.ptr(ang), build.ptr(npk), K, h, w, pad, n_bins, N_PEAKS_CAP,
-            float(radius_factor), float(np.float32(cfg.lambda_ori)),
-            float(np.float32(cfg.orientation_localmax_ratio)), float(bstep),
-            build.stream_ptr(gauss_flat))
+    out, rc = _launch(gauss_flat, plane, y, x, kp_scale, live, None, h, w, pad,
+                      cfg, "orientation_hist_peaks")
     build.check(rc, "K5 orientation")
     build.count_launch("K5")
-    return hist, ang, npk
+    return out
+
+
+def orientation_hist_prefix(gauss_flat: torch.Tensor, plane, y, x, kp_scale,
+                            count, h: int, w: int, pad: int, cfg: SiftConfig):
+    """K5′ wrapper: orientation_hist_peaks with lane i live iff i < count, a
+    0-d integer tensor on gauss_flat's device
+    (orientation_packed.py:orientation_histograms_packed). The plain version
+    for a CPU tensor; the CUDA kernel, which reads the count on the card,
+    for a CUDA tensor (or an error)."""
+    if gauss_flat.device.type == "cpu":
+        live = torch.arange(plane.shape[0]) < count
+        return orientation_plain(gauss_flat, plane, y, x, kp_scale, live, h, w,
+                                 pad, cfg)
+    out, rc = _launch(gauss_flat, plane, y, x, kp_scale, None, count, h, w, pad,
+                      cfg, "orientation_hist_prefix")
+    build.check(rc, "K5′ orientation_prefix")
+    build.count_launch("K5′")
+    return out
+
+
+def orientation_histograms_bucketed(gauss_flat: torch.Tensor, s_img, s_level,
+                                    y, x, kp_scale, count, h: int, w: int,
+                                    pad: int, cfg: SiftConfig,
+                                    with_peaks: bool = False):
+    """Counterpart of ops/pallas/orientation_kernel.py:
+    orientation_histograms_bucketed (count-prefix liveness) -> the SMOOTHED
+    (K, n_bins) histograms, and with `with_peaks` also (angles (K,
+    N_PEAKS_CAP), n_peaks (K,)). s_img (K,) is the plane to sample, s_level
+    (K,) the scale level in [1, S] (the JAX bucket key: lanes outside it
+    stay zero); lane i is live iff i < count. One K5′ launch serves every
+    radius; per-keypoint output is the same as the JAX dispatcher's."""
+    in_range = ((s_level >= 1) & (s_level <= cfg.scales_per_octave))
+    raw, ang, npk = orientation_hist_prefix(gauss_flat, s_img, y, x, kp_scale,
+                                            count, h, w, pad, cfg)
+    zero = torch.zeros((), dtype=F32, device=raw.device)
+    hist = smooth(torch.where(in_range[:, None], raw, zero))
+    if not with_peaks:
+        return hist
+    return (hist, torch.where(in_range[:, None], ang, zero),
+            torch.where(in_range, npk, torch.zeros_like(npk)))

@@ -12,13 +12,14 @@
 - the matcher against `_match_jit`.
 
 The JAX references are the expensive part (XLA:CPU compiles every
-interpret-mode kernel), so one module fixture computes them in three
-threads; the K6 reference runs at the shapes of the octave's descriptor
-call, so the two share one compiled kernel.
+interpret-mode kernel), so the module fixture computes each one at the
+first test that reads it and keeps it: under pytest-xdist's `--dist load`
+a worker computes only the parts its own tests read. The K6 reference runs
+at the shapes of the octave's descriptor call, so the two share one
+compiled kernel when one worker runs both.
 """
 
 import dataclasses
-from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -34,7 +35,9 @@ from sift_features_tpu_torch.ops import descriptor as tdesc
 from sift_features_tpu_torch.ops.kernels import descriptor as tk6
 from sift_features_tpu_torch.ops.kernels import orientation as tk5
 
-from test_torch_gpu import smooth_images
+from test_torch_gpu import one_torch_thread, smooth_images  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 P = jdesc.PAD_DESC
 # JAX runs refine_mode="step" (K4 loop): the walk kernel's interpret-mode
@@ -57,7 +60,7 @@ def _window_lanes(rng, n, h, w):
                 ang=(rng.rand(n) * 360.0).astype(np.float32))
 
 
-def _jax_octave_inputs():
+def _jax_octave_inputs(_):
     """JAX fused octave 0 of one 48 x 64 frame (96 x 128 seed)."""
     from sift_features_tpu.ops import pyramid as jpyr
     from sift_features_tpu.ops.pallas.pyramid_kernel import (
@@ -70,26 +73,29 @@ def _jax_octave_inputs():
     base = jax.vmap(lambda im: reflect_pad_image(
         im, P, wp - w - 2 * P, hp - h - 2 * P))(seed)
     g, d, _, _ = build_octave_fused(base, JCFG, interpret=True)
-    return g, d, (h, w)
+    return {"g": np.array(g), "d": np.array(d), "hw": (h, w)}
 
 
-def _jax_octave(g, d, hw):
+def _jax_octave(ref):
     from sift_features_tpu.models.extractor import _detect_octave_batched
 
-    det = _detect_octave_batched(g, d, 0, JCFG_STEP, hw, interpret=True)
+    det = _detect_octave_batched(jnp.asarray(ref["g"]), jnp.asarray(ref["d"]),
+                                 0, JCFG_STEP, ref["hw"], interpret=True)
     return {"det": {k: np.asarray(v) for k, v in det.items()}}
 
 
-def _jax_k6(g, hw, m):
+def _jax_k6(ref):
     """K6 on the octave's Gaussian levels, at the shapes of the octave's own
     descriptor call (so the two share one compiled kernel)."""
     from sift_features_tpu.ops.pallas.descriptor_kernel import (
         descriptor_hist_masked)
 
-    h, w = hw
+    g, (h, w) = ref["g"], ref["hw"]
+    m = tx.octave_capacities(h, w, CFG)[2]
     lanes = _window_lanes(np.random.RandomState(6), m, h, w)
     hist = descriptor_hist_masked(
-        g.reshape(-1, *g.shape[2:]), jnp.asarray(lanes["s_level"] - 1),
+        jnp.asarray(g.reshape(-1, *g.shape[2:])),
+        jnp.asarray(lanes["s_level"] - 1),
         jnp.asarray(lanes["s_level"]), jnp.asarray(lanes["x"]),
         jnp.asarray(lanes["y"]), jnp.asarray(lanes["ks"]),
         jnp.asarray(lanes["ang"]), h, w, P, JCFG_STEP, interpret=True,
@@ -98,13 +104,17 @@ def _jax_k6(g, hw, m):
                    np.asarray(jdesc.finalize_descriptor(hist, JCFG)))}
 
 
-def _jax_extract_and_k5():
+def _jax_extract(_):
     from sift_features_tpu.models.extractor import extract_batch
-    from sift_features_tpu.ops.pallas.orientation_kernel import (
-        orientation_histograms_bucketed)
 
     imgs = smooth_images(0, 2, 96, 128)
     res = {k: np.asarray(v) for k, v in extract_batch(imgs, JCFG).items()}
+    return {"imgs": imgs, "extract": res}
+
+
+def _jax_k5(_):
+    from sift_features_tpu.ops.pallas.orientation_kernel import (
+        orientation_histograms_bucketed)
 
     rng = np.random.RandomState(5)
     h, w = 96, 128
@@ -117,22 +127,26 @@ def _jax_extract_and_k5():
         jnp.asarray(lanes["x"]), jnp.asarray(lanes["ks"]), None, h, w, P,
         JCFG, interpret=True, live=jnp.asarray(lanes["live"]),
         with_peaks=True)
-    k5 = (gp, lanes, (h, w), np.asarray(hist), np.asarray(ang),
-          np.asarray(npk))
-    return {"imgs": imgs, "extract": res, "k5": k5}
+    return {"k5": (gp, lanes, (h, w), np.asarray(hist), np.asarray(ang),
+                   np.asarray(npk))}
+
+
+_PART_OF = {"g": _jax_octave_inputs, "d": _jax_octave_inputs,
+            "hw": _jax_octave_inputs, "det": _jax_octave, "k6": _jax_k6,
+            "imgs": _jax_extract, "extract": _jax_extract, "k5": _jax_k5}
+
+
+class _Refs(dict):
+    """The JAX references by name, each part computed at its first read."""
+
+    def __missing__(self, key):
+        self.update(_PART_OF[key](self))
+        return self[key]
 
 
 @pytest.fixture(scope="module")
 def ref():
-    g, d, hw = _jax_octave_inputs()
-    m = tx.octave_capacities(*hw, CFG)[2]
-    with ThreadPoolExecutor(3) as ex:
-        parts = [ex.submit(_jax_k6, g, hw, m), ex.submit(_jax_octave, g, d, hw),
-                 ex.submit(_jax_extract_and_k5)]
-        out = {"g": np.array(g), "d": np.array(d), "hw": hw}
-        for part in parts:
-            out.update(part.result())
-        return out
+    return _Refs()
 
 
 def test_k5_plain_matches_pallas_bucketed(ref):

@@ -25,6 +25,18 @@ def dev():
     return torch.device("cuda")
 
 
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """PyTorch's CPU ops on one thread for a module of CPU tests. The suite
+    runs in several pytest-xdist workers that share the host's cores, and
+    the plain versions' many small ops, each spread over every core, then
+    run tens of times slower than on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def smooth_images(seed, b, h, w, n_blobs=12, blur=2.0):
     """uint8 frames of blurred noise plus Gaussian blobs (keypoints at every
     octave)."""
@@ -177,3 +189,93 @@ def test_card_matches_cpu(dev):
                                atol=1e-3)
     rows_eq = (rc["desc"].cpu()[v] == rh["desc"][v]).all(1).float().mean()
     assert float(rows_eq) >= 0.99
+
+
+def test_k9_bit_exact(dev):
+    from sift_features_tpu_torch.ops.kernels.pyramid import (
+        build_octave_padded, build_octave_padded_plain, octave_fused)
+
+    base, _, _, _ = _octave0(dev, b=1)
+    g, d = build_octave_padded(base[0], CFG)
+    g2, d2 = build_octave_padded(base[0], CFG)
+    torch.cuda.synchronize()
+    gp, dp = build_octave_padded_plain(base[0], CFG)
+    assert torch.equal(g, gp) and torch.equal(d, dp)
+    assert torch.equal(g, g2) and torch.equal(d, d2)
+    # a chain of K9 levels is the K1 octave
+    g1, d1 = octave_fused(base, CFG)
+    assert torch.equal(g[:CFG.scales_per_octave], g1[0]) and torch.equal(d, d1[0])
+
+
+def test_k2_single_bit_exact(dev):
+    from sift_features_tpu_torch.ops.kernels.extrema import (
+        extrema_words_plain, extrema_words_single)
+
+    _, _, d, (h, w) = _octave0(dev, b=1)
+    b = CFG.image_border
+    bounds = (P + b, P + h - b, P + b, P + w - b)
+    words = extrema_words_single(d[0], bounds, CFG)
+    torch.cuda.synchronize()
+    assert torch.equal(words, extrema_words_plain(d, bounds, CFG)[0])
+    assert int((words != 0).sum()) > 10
+
+
+def test_k5_prefix_matches_plain(dev):
+    from sift_features_tpu_torch.ops.kernels.orientation import (
+        orientation_hist_prefix, orientation_plain)
+
+    c = _survivor_windows(dev)
+    count = torch.tensor(211, device=dev)
+    args = (c["gauss_flat"], c["plane"], c["y"], c["x"], c["kp_scale"])
+    tail = (c["h"], c["w"], P, CFG)
+    h1, a1, n1 = orientation_hist_prefix(*args, count, *tail)
+    h2, a2, n2 = orientation_hist_prefix(*args, count, *tail)
+    torch.cuda.synchronize()
+    live = torch.arange(c["plane"].numel(), device=dev) < count
+    hp, ap, npk = orientation_plain(*args, live, *tail)
+    assert torch.equal(h1, h2) and torch.equal(a1, a2) and torch.equal(n1, n2)
+    torch.testing.assert_close(h1, hp, rtol=1e-6, atol=1e-7)
+    assert torch.equal(n1, npk)
+    torch.testing.assert_close(a1, ap, rtol=1e-6, atol=1e-4)
+    assert not h1[211:].any() and not n1[211:].any()
+
+
+def test_k6_prefix_matches_plain(dev):
+    from sift_features_tpu_torch.ops.kernels.descriptor import (
+        descriptor_hist_prefix, descriptor_plain)
+
+    c = _survivor_windows(dev)
+    count = torch.tensor(173, device=dev)
+    args = (c["gauss_flat"], c["plane"], c["x"], c["y"], c["kp_scale"],
+            c["angle"])
+    tail = (c["h"], c["w"], P, CFG)
+    d1 = descriptor_hist_prefix(*args, count, *tail)
+    d2 = descriptor_hist_prefix(*args, count, *tail)
+    torch.cuda.synchronize()
+    live = torch.arange(c["plane"].numel(), device=dev) < count
+    assert torch.equal(d1, d2)
+    torch.testing.assert_close(d1, descriptor_plain(*args, live, *tail),
+                               rtol=1e-6, atol=1e-7)
+    assert not d1[173:].any()
+
+
+def test_budget_single_split_on_card(dev):
+    """The budget, per-frame and split paths on the card against the port
+    on the CPU."""
+    from sift_features_tpu_torch.models import extractor as tx
+
+    imgs = smooth_images(1, 2, 96, 128)
+    rc = tx.extract_batch(imgs, features_limit=37, device=dev)
+    rh = tx.extract_batch(imgs, features_limit=37, device="cpu")
+    for key in ("valid", "src_idx", "n_emitted"):
+        assert torch.equal(rc[key].cpu(), rh[key]), key
+    torch.testing.assert_close(rc["kps"].cpu(), rh["kps"], rtol=0, atol=1e-3)
+    n_oct = rh["n_emitted"].shape[1]
+    one = tx._extract_single(torch.as_tensor(imgs[0], device=dev), n_oct, CFG)
+    full = tx.extract_batch(imgs, device=dev)
+    for key in ("n_candidates", "n_survivors", "n_emitted", "valid", "kps",
+                "desc"):
+        assert torch.equal(one[key], full[key][0]), key
+    octs, dogs = tx.precompute(imgs, device=dev)
+    sp = tx.extract_with_precomputed(octs, dogs, device=dev)
+    assert torch.equal(sp["valid"].sum(1), full["valid"].sum(1))

@@ -60,8 +60,14 @@ def test_wrappers_never_fall_back():
 
 
 def test_unported_paths_raise():
+    import dataclasses
+
     img = np.zeros((1, 32, 32), np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        extractor.extract_batch(img, features_limit=10, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        extractor.precompute(img)
+    for field, value in (("window_kernel", "perkey"), ("refine_mode", "tile"),
+                         ("refine_mode", "region"),
+                         ("storage_dtype", "bfloat16")):
+        cfg = dataclasses.replace(CFG, **{field: value})
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            extractor.extract_batch(img, cfg, features_limit=10, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            extractor.precompute(img, cfg, device="cpu")
