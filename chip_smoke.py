@@ -13,7 +13,10 @@ Phases (any failure stops the script with a non-zero exit):
      for byte, per-launch time, plain-version time, the bound and, where one
      PyTorch call computes the same function, that call's time;
      K2', K5', K6' and K9 are held the same way at the octave-0 inputs of
-     the per-frame path (_extract_single on frame 0);
+     the per-frame path (_extract_single on frame 0); K10 and K11 at K3's
+     candidates (K10 also against K4's rows, K11's merged rows against
+     K3's), K8 and K7 on K5's and K6's lanes, one launch per scale bucket
+     (also against K5's and K6's raw rows);
   4. main path: extract_batch on the B=4 1080p batch, then per-frame top-1024
      by response and cross-check matching of frame i against frame i+1 (the
      step bench.py times), with launch counts reset just before and read
@@ -29,7 +32,14 @@ Phases (any failure stops the script with a non-zero exit):
      extract_batch's row, kps within 1e-4 and descriptor bytes within 1;
   8. card against CPU on one small seeded image;
   9. refine_mode="step" (K4) against the default walk (K3) on that image;
-  10. one JSON line with every kernel's numbers.
+  10. modes: the main step with refine_mode="region" (K10 then K4), "tile"
+      (K11, escapes re-refined by K4) and window_kernel="perkey" (K8, K7),
+      each byte-identical to the default step's output, launching its
+      kernels and not the ones they replace; the median of 5 steps each
+      against 5 default steps interleaved with them, a profile of one step,
+      the tile walks that escaped; then the budget step once with perkey,
+      byte-identical to the default budget output;
+  11. one JSON line with every kernel's numbers.
 The last line is {"ok": true, "device": {...}}.
 
 It needs one CUDA card and nvcc; without a card it exits with code 2 and
@@ -187,10 +197,9 @@ def check_kernels(torch, cap, cfg, dev):
 
     def record(name, out_k, out_k2, out_p, exact, tol, ms, plain_ms, nbytes,
                ops, library_ms=None, note=""):
-        outs = [(a.float(), b.float(), c.float()) for a, b, c in
-                zip(out_k, out_k2, out_p)]
+        outs = list(zip(out_k, out_k2, out_p))
         same = all(torch.equal(a, b) for a, b, _ in outs)
-        err = max(float((a - c).abs().max()) if a.numel() else 0.0
+        err = max(float((a.float() - c.float()).abs().max()) if a.numel() else 0.0
                   for a, _, c in outs)
         ok = same and (all(torch.equal(a, c) for a, _, c in outs) if exact
                        else err <= tol)
@@ -364,7 +373,150 @@ def check_kernels(torch, cap, cfg, dev):
     record("K6′", [outs[0]], [outs[1]], [plain], False, 1e-4, ms, plain_ms,
            4 * px + live.numel() * (5 * 4 + 128 * 4) + 4, 100 * smp,
            note=f"; count {n_live} of {live.numel()} lanes")
+    del outs, plain
+    check_mode_kernels(torch, cap, cfg, record, rows)
     return rows
+
+
+def nan_safe(torch, t):
+    """The f32 rows as int32 bit patterns: NaN-safe bit equality."""
+    return t.view(torch.int32)
+
+
+def check_mode_kernels(torch, cap, cfg, record, rows):
+    """Phase 3 for the kernels of the other modes: K10 and K11 at K3's
+    octave-0 candidates, K8 and K7 on K5's and K6's lanes."""
+    from sift_features_tpu_torch.ops.kernels import (
+        descriptor as k6, orientation as k5, refine as kr)
+    from sift_features_tpu_torch.ops.extrema import newton_step
+
+    args, kw = cap["K3"]
+    dog_flat, s0, y0, x0, valid = args[:5]
+    pad, h, w = args[5:8]
+    poff = kw["plane_off"]
+    full = (*args[:9], poff)
+    active = refine_steps_active(torch, full, cfg)
+    k = s0.numel()
+
+    # K10: one region-grouped step at the first step's candidates; equal to
+    # K4 and to the plain version bit for bit, non-finite values included
+    p = torch.clamp(s0, 1, cfg.scales_per_octave) + poff
+    k10_args = (dog_flat, p, y0, x0, valid, cfg)
+    g = kr.region_order(p, y0, x0, valid, *dog_flat.shape)
+    outs = [kr.region_step(dog_flat, g, cfg) for _ in range(2)]
+    k4 = kr.refine_step(*k10_args)
+    plain = kr.region_step_plain(dog_flat, g, cfg)
+    if not torch.equal(nan_safe(torch, kr.refine_step_region(*k10_args)),
+                       nan_safe(torch, k4)):
+        raise SystemExit("chip_smoke: K10 disagrees with K4")
+    ms = time_ms(torch, lambda: kr.region_step(dog_flat, g, cfg), 10)
+    wrapper_ms = time_ms(torch, lambda: kr.refine_step_region(*k10_args), 10)
+    plain_ms = time_ms(torch, lambda: kr.region_step_plain(dog_flat, g, cfg), 2)
+    record("K10", [nan_safe(torch, outs[0])], [nan_safe(torch, outs[1])],
+           [nan_safe(torch, plain)], True, 0.0, ms, plain_ms,
+           k * (4 * 4 + 16 * 4) + 27 * 4 * active[0], 150 * active[0],
+           note=f"; equal to K4 bit for bit; {int(g['n_runs'])} region runs "
+                f"for {int(g['n_active'])} active lanes; with the grouping "
+                f"(sort + run compaction) {wrapper_ms:.4f} ms")
+    rows["K10"]["wrapper_ms"] = wrapper_ms
+    del outs, plain, k4
+
+    # K11: the tile walk on the grouped slots (rows and escape flags against
+    # the plain version), and the merged rows against K3's
+    lay = kr.tile_layout(dog_flat, s0, y0, x0, valid, pad, cfg, poff)
+    outs = [kr.refine_tile_slots(dog_flat, lay, pad, h, w, cfg) for _ in range(2)]
+    plain = kr.refine_tile_plain(dog_flat, lay, pad, h, w, cfg)
+    merged = kr.refine_tile(*args, **kw)
+    k3 = kr.refine_walk(*args, **kw)
+    if not torch.equal(merged, k3):
+        raise SystemExit("chip_smoke: K11's merged rows differ from K3's")
+    n_esc = int((outs[0][:, 9] > 0).sum())
+    n_blocks = int((lay.active_b > 0).sum())
+    ms = time_ms(torch, lambda: kr.refine_tile_slots(dog_flat, lay, pad, h, w,
+                                                     cfg), 10)
+    plain_ms = time_ms(torch, lambda: kr.refine_tile_plain(dog_flat, lay, pad,
+                                                           h, w, cfg), 2)
+    record("K11", [outs[0]], [outs[1]], [plain], True, 0.0, ms, plain_ms,
+           k * (5 * 4 + 16 * 4) + 27 * 4 * sum(active), 150 * sum(active),
+           note=f"; merged rows equal K3's; {n_esc} escaped walks of "
+                f"{int(valid.sum())} candidates; {n_blocks} of {lay.nb} "
+                f"blocks active, {lay.T_cap} slots")
+    rows["K11"]["escapes"] = n_esc
+    del outs, plain, merged, k3
+
+    # K8 and K7: one launch per scale bucket on the compacted lanes of that
+    # bucket, as the perkey dispatchers launch them
+    def buckets(plane, live, n_win, radii):
+        from sift_features_tpu_torch.utils.compact import compact_indices
+
+        level = plane % n_win + 1
+        out = []
+        for si, r_max in radii.items():
+            maskb = live.bool() & (level == si)
+            idx, _, n = compact_indices(maskb, maskb.numel())
+            out.append((idx, n, r_max))
+        return out
+
+    S = cfg.scales_per_octave
+    args5, kw5 = cap["K5"]
+    gflat, plane, y, x, scale, live = args5[:6]
+    k5_raw = k5.orientation_hist_peaks(*args5, **kw5)[0]
+    runs = []
+    for idx, n, r_max in buckets(plane, live, S, k5.bucket_radii_ori(cfg)):
+        a = (gflat, plane[idx], y[idx], x[idx], scale[idx], n, h, w, pad,
+             r_max, cfg)
+        lv = torch.arange(idx.numel(), device=idx.device) < n
+        runs.append((a, lv, idx, n, r_max))
+    outs = [[k5.orientation_hist_perkey(*a) for a, *_ in runs] for _ in range(2)]
+    plain = [k5.orientation_raw_plain(*a[:5], lv, *a[6:9], cfg, r_max)
+             for a, lv, _, _, r_max in runs]
+    for o, (_, lv, idx, _, _) in zip(outs[0], runs):
+        if not torch.equal(o[lv], k5_raw[idx[lv]]):
+            raise SystemExit("chip_smoke: K8's raw rows differ from K5's")
+    ms = time_ms(torch, lambda: [k5.orientation_hist_perkey(*a) for a, *_ in runs],
+                 10) / len(runs)
+    plain_ms = time_ms(torch, lambda: [k5.orientation_raw_plain(
+        *a[:5], lv, *a[6:9], cfg, r_max) for a, lv, _, _, r_max in runs],
+        1, 0) / len(runs)
+    nb = [window_samples(torch, a[4], lv, 3.0 * cfg.lambda_ori, r_max)
+          for a, lv, _, _, r_max in runs]
+    n_lanes = sum(lv.numel() for _, lv, *_ in runs)
+    record("K8", outs[0], outs[1], plain, False, 1e-4, ms, plain_ms,
+           (4 * sum(px for _, px, _ in nb) + n_lanes * (4 * 4 + 36 * 4) + 4
+            * len(runs)) / len(runs), 60 * sum(sm for _, _, sm in nb) / len(runs),
+           note=f" (per bucket launch, {len(runs)} buckets); raw rows equal "
+                f"K5's; live per bucket {[n_ for n_, _, _ in nb]}")
+    del outs, plain
+
+    args6, kw6 = cap["K6"]
+    gflat, plane, xi, yi, scale, angle, live = args6[:7]
+    k6_raw = k6.descriptor_hist(*args6, **kw6)
+    runs = []
+    for idx, n, r_max in buckets(plane, live, S, k6.bucket_radii(cfg)):
+        a = (gflat, plane[idx], xi[idx], yi[idx], scale[idx], angle[idx], n, h,
+             w, pad, r_max, cfg)
+        lv = torch.arange(idx.numel(), device=idx.device) < n
+        runs.append((a, lv, idx, n, r_max))
+    outs = [[k6.descriptor_hist_perkey(*a) for a, *_ in runs] for _ in range(2)]
+    plain = [k6.descriptor_plain(*a[:6], lv, *a[7:10], cfg, r_max=r_max)
+             for a, lv, _, _, r_max in runs]
+    for o, (_, lv, idx, _, _) in zip(outs[0], runs):
+        if not torch.equal(o[lv], k6_raw[idx[lv]]):
+            raise SystemExit("chip_smoke: K7's raw rows differ from K6's")
+    ms = time_ms(torch, lambda: [k6.descriptor_hist_perkey(*a) for a, *_ in runs],
+                 5) / len(runs)
+    plain_ms = time_ms(torch, lambda: [k6.descriptor_plain(
+        *a[:6], lv, *a[7:10], cfg, r_max=r_max) for a, lv, _, _, r_max in runs],
+        1, 0) / len(runs)
+    factor = cfg.lambda_descr * np.sqrt(2.0) * (cfg.descriptor_n_histograms + 1) / 2
+    nb = [window_samples(torch, a[4], lv, factor, r_max)
+          for a, lv, _, _, r_max in runs]
+    n_lanes = sum(lv.numel() for _, lv, *_ in runs)
+    record("K7", outs[0], outs[1], plain, False, 1e-4, ms, plain_ms,
+           (4 * sum(px for _, px, _ in nb) + n_lanes * (5 * 4 + 128 * 4) + 4
+            * len(runs)) / len(runs), 100 * sum(sm for _, _, sm in nb) / len(runs),
+           note=f" (per bucket launch, {len(runs)} buckets); raw rows equal "
+                f"K6's; live per bucket {[n_ for n_, _, _ in nb]}")
 
 
 def main_path_step(torch, extract_batch, match_dense, frames, cfg, dev):
@@ -571,6 +723,101 @@ def split_phase(torch, extractor, frames, res_full, cfg, dev):
         raise SystemExit("chip_smoke: split path disagrees with extract_batch")
 
 
+# mode -> (SiftConfig fields, kernels it must launch, kernels it replaces).
+# region_steps defaults to max_interpolation_steps: every step is K10's
+MODES = {"region": ({"refine_mode": "region"}, ("K10",), ("K3",)),
+         "tile": ({"refine_mode": "tile"}, ("K11", "K4"), ("K3",)),
+         "perkey": ({"window_kernel": "perkey"}, ("K8", "K7"), ("K5", "K6"))}
+
+
+def modes_phase(torch, extractor, match_dense, frames, res_full, cfg, dev):
+    """The main step in each other mode against the default step's output;
+    then the budget step once with perkey."""
+    import dataclasses
+
+    from sift_features_tpu_torch.ops.kernels import build
+    from sift_features_tpu_torch.ops.kernels import refine as kr
+
+    out = {}
+    for mode, (fields, need, never) in MODES.items():
+        mcfg = dataclasses.replace(cfg, **fields)
+        main_path_step(torch, extractor.extract_batch, match_dense, frames, mcfg,
+                       dev)
+        torch.cuda.synchronize()
+        escapes = []
+        tile_slots = kr.refine_tile_slots
+
+        def counted(dog_flat, g, *a, **k):
+            o = tile_slots(dog_flat, g, *a, **k)
+            escapes.append((o[:, 9] > 0).sum())
+            return o
+        kr.refine_tile_slots = counted
+        build.reset_launches()
+        try:
+            res, _, _ = main_path_step(torch, extractor.extract_batch,
+                                       match_dense, frames, mcfg, dev)
+            torch.cuda.synchronize()
+        finally:
+            kr.refine_tile_slots = tile_slots
+        launches = dict(build.LAUNCHES)
+        for key in res_full:
+            if not torch.equal(res[key], res_full[key]):
+                raise SystemExit(f"chip_smoke: {mode} mode differs from the "
+                                 f"default step in {key}")
+        if not all(launches.get(k) for k in need) or any(
+                launches.get(k) for k in never):
+            raise SystemExit(f"chip_smoke: {mode} mode must launch {need} and "
+                             f"not {never}: {launches}")
+        # 5 steps of the mode, each after one default step, so the host
+        # clock's drift touches both alike
+        step_s, base_s = [], []
+        for _ in range(5):
+            for c, acc in ((cfg, base_s), (mcfg, step_s)):
+                t0 = time.perf_counter()
+                main_path_step(torch, extractor.extract_batch, match_dense,
+                               frames, c, dev)
+                torch.cuda.synchronize()
+                acc.append(time.perf_counter() - t0)
+        med = statistics.median(step_s) * 1e3
+        busy_ms = profile_step(torch, lambda: main_path_step(
+            torch, extractor.extract_batch, match_dense, frames, mcfg, dev), med,
+            f"{mode}-profile", top=6)
+        n_esc = [int(e) for e in escapes]
+        out[mode] = {"median_step_ms": med, "step_ms": [t * 1e3 for t in step_s],
+                     "default_median_step_ms_interleaved":
+                         statistics.median(base_s) * 1e3,
+                     "default_step_ms_interleaved": [t * 1e3 for t in base_s],
+                     "profiled_step_kernel_ms": busy_ms, "launches": launches}
+        if mode == "tile":
+            out[mode]["escapes_per_octave"] = n_esc
+        print(f"[modes] {mode}: byte-identical to the default step; median "
+              f"{med:.1f} ms of 5 steps against {statistics.median(base_s) * 1e3:.1f}"
+              f" ms for the default steps between them; launches {launches}"
+              + (f"; escaped walks per octave {n_esc}" if mode == "tile" else ""),
+              flush=True)
+
+    # the budget step once with perkey: K7 describes the chosen keypoints
+    mcfg = dataclasses.replace(cfg, window_kernel="perkey")
+    extractor.extract_batch(frames, mcfg, features_limit=BUDGET, device=dev)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    rb = extractor.extract_batch(frames, mcfg, features_limit=BUDGET, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    want = extractor._truncate_result(res_full, BUDGET)
+    for key in want:
+        if not torch.equal(rb[key], want[key]):
+            raise SystemExit(f"chip_smoke: perkey budget differs in {key}")
+    if not launches.get("K7") or launches.get("K6′") or launches.get("K6"):
+        raise SystemExit(f"chip_smoke: perkey budget must launch K7 and not "
+                         f"K6/K6′: {launches}")
+    out["perkey_budget"] = {"launches": launches}
+    print(f"[modes] perkey budget: byte-identical to the default budget "
+          f"output; launches {launches}", flush=True)
+    print(json.dumps({"modes": out}, ensure_ascii=False), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -710,6 +957,7 @@ def main() -> int:
     # 6. per-frame path, 7. split path: frame 0 against extract_batch's row
     single_launches = per_frame_phase(torch, extractor, frames, res, cfg, dev)
     split_phase(torch, extractor, frames, res, cfg, dev)
+    res_full = res
     del res, d, matches
     torch.cuda.empty_cache()
 
@@ -745,9 +993,19 @@ def main() -> int:
     print(f"[step-mode] K4 launches {step_launches['K4']}: keypoints and "
           f"descriptors identical to walk mode", flush=True)
 
-    # 10. the kernels line
+    # 10. the other modes at B=4 1080p
+    modes = modes_phase(torch, extractor, match_dense, frames, res_full, cfg,
+                        dev)
+    del res_full
+    torch.cuda.empty_cache()
+
+    # 11. the kernels line
     paths = {"K4": ("refine_mode=step, 240x320", step_launches),
-             "K6′": (f"budget, features_limit={BUDGET}", budget_row["launches"])}
+             "K6′": (f"budget, features_limit={BUDGET}", budget_row["launches"]),
+             "K10": ("refine_mode=region main step", modes["region"]["launches"]),
+             "K11": ("refine_mode=tile main step", modes["tile"]["launches"])}
+    for k in ("K7", "K8"):
+        paths[k] = ("window_kernel=perkey main step", modes["perkey"]["launches"])
     for k in ("K9", "K2′", "K5′"):
         paths[k] = ("per-frame _extract_single, 1080p frame 0", single_launches)
     kernels = []

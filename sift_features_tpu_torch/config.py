@@ -55,12 +55,14 @@ class SiftConfig:
     # Only "float32" is ported (ROADMAP.md Queue A).
     gather_dtype: str = "float32"
     storage_dtype: str = "float32"
-    # "walk" (whole <=5-step loop in one kernel launch) or "step" (one
-    # masked step per launch); identical outputs. "region"/"tile" are not
-    # ported (ROADMAP.md Queue A).
+    # "walk" (whole <=5-step loop in one kernel launch, K3), "step" (one
+    # masked step per launch, K4), "region" (the first region_steps steps
+    # region-grouped, K10, then K4) or "tile" (tile-grouped whole walk,
+    # K11, escapes re-refined by K4); identical outputs.
     refine_mode: str = "walk"
     region_steps: int = 5
-    # Only "packed" is ported; the port's window kernels have one layout.
+    # "packed" (K5 / K6 and their count-prefix forms) or "perkey" (K8 / K7,
+    # launched per scale bucket); identical outputs.
     window_kernel: str = "packed"
 
     @property
@@ -132,11 +134,7 @@ def check_supported(cfg: SiftConfig) -> None:
         raise NotImplementedError(
             "storage_dtype/gather_dtype other than 'float32' are not ported "
             "yet (ROADMAP.md Queue A)")
-    if cfg.refine_mode not in ("walk", "step"):
-        raise NotImplementedError(
-            f"refine_mode={cfg.refine_mode!r} is not ported yet "
-            "(ROADMAP.md Queue A)")
-    if cfg.window_kernel != "packed":
-        raise NotImplementedError(
-            f"window_kernel={cfg.window_kernel!r} is not ported yet "
-            "(ROADMAP.md Queue A)")
+    if cfg.refine_mode not in ("walk", "step", "region", "tile"):
+        raise ValueError(f"unknown refine_mode {cfg.refine_mode!r}")
+    if cfg.window_kernel not in ("packed", "perkey"):
+        raise ValueError(f"unknown window_kernel {cfg.window_kernel!r}")

@@ -1,4 +1,5 @@
-// K5: 36-bin gradient-orientation histograms with in-kernel peaks.
+// K5 and K8: 36-bin gradient-orientation histograms (K5 with in-kernel
+// peaks). K8's note is at its kernel below.
 //
 // Replaces the TPU kernels of sift_features_tpu/ops/pallas/orientation_packed.py
 // (one _kernel, two liveness modes), which the JAX extractor dispatches per
@@ -31,6 +32,39 @@
 #define MAX_BINS 64
 #define MAX_PEAKS 8
 
+// Radius (f32), Gaussian weight scale -1 / (2 sigma^2) and the integer
+// half-width min(radius, r_max) of one keypoint's window.
+__device__ __forceinline__ int orientation_lane(float scale, float radius_factor,
+                                                float lambda_ori, int r_max, float* radius,
+                                                float* gws) {
+  *radius = round_half_away(radius_factor * scale);
+  float sigma = lambda_ori * scale;
+  *gws = -1.0f / (2.0f * sigma * sigma);
+  return (int)fminf(fmaxf(*radius, 0.0f), (float)r_max);
+}
+
+// Adds window row dy of one keypoint to acc (n_bins), columns ascending:
+// samples within the radius and inside [1, w-2]. g points at the sample of
+// row y + dy, column x, in a plane of row stride `stride` (the Gaussian
+// level in device memory for K5, the staged window for K8).
+__device__ __forceinline__ void orientation_row(const float* g, int stride, int dy, int ri,
+                                                float radius, int x, int w, float gws,
+                                                float bstep, int n_bins, float* acc) {
+  for (int dx = -ri; dx <= ri; ++dx) {
+    int xx = x + dx;
+    if (fabsf((float)dx) > radius || xx < 1 || xx > w - 2) continue;
+    float d2 = (float)(dy * dy + dx * dx);
+    float weight = exp_f32_via_f64(d2 * gws);
+    float gx = g[dx + 1] - g[dx - 1];
+    float gy = g[dx - stride] - g[dx + stride];
+    float mag = sqrtf(gx * gx + gy * gy);
+    int b = (int)round_half_away(bstep * atan2_f32(gy, gx));
+    if (b >= n_bins) b -= n_bins;
+    if (b < 0) b += n_bins;
+    acc[b] += weight * mag;
+  }
+}
+
 __global__ void orientation_kernel(
     const float* __restrict__ gauss, int Hp, int Wp, const int* __restrict__ plane,
     const int* __restrict__ ys, const int* __restrict__ xs,
@@ -49,11 +83,8 @@ __global__ void orientation_kernel(
     if (t == 0) npk[k] = 0;
     return;
   }
-  float scale = scales[k];
-  float radius = round_half_away(radius_factor * scale);
-  float sigma = lambda_ori * scale;
-  float gws = -1.0f / (2.0f * sigma * sigma);
-  int ri = (int)fminf(fmaxf(radius, 0.0f), (float)R_ORI_MAX);
+  float radius, gws;
+  int ri = orientation_lane(scales[k], radius_factor, lambda_ori, R_ORI_MAX, &radius, &gws);
   int n = 2 * ri + 1;
   int y = ys[k], x = xs[k];
   for (int i = t; i < n * n_bins; i += blockDim.x) rows[i / n_bins][i % n_bins] = 0.0f;
@@ -61,23 +92,10 @@ __global__ void orientation_kernel(
   if (t < n) {
     int dy = t - ri;
     int yy = y + dy;
-    if (fabsf((float)dy) <= radius && yy >= 1 && yy <= h - 2) {
-      const float* g = gauss + (long long)plane[k] * Hp * Wp +
-                       (long long)(yy + pad) * Wp + pad;
-      for (int dx = -ri; dx <= ri; ++dx) {
-        int xx = x + dx;
-        if (fabsf((float)dx) > radius || xx < 1 || xx > w - 2) continue;
-        float d2 = (float)(dy * dy + dx * dx);
-        float weight = exp_f32_via_f64(d2 * gws);
-        float gx = g[xx + 1] - g[xx - 1];
-        float gy = g[xx - Wp] - g[xx + Wp];
-        float mag = sqrtf(gx * gx + gy * gy);
-        int b = (int)round_half_away(bstep * atan2_f32(gy, gx));
-        if (b >= n_bins) b -= n_bins;
-        if (b < 0) b += n_bins;
-        rows[t][b] += weight * mag;
-      }
-    }
+    if (fabsf((float)dy) <= radius && yy >= 1 && yy <= h - 2)
+      orientation_row(gauss + (long long)plane[k] * Hp * Wp + (long long)(yy + pad) * Wp +
+                          pad + x,
+                      Wp, dy, ri, radius, x, w, gws, bstep, n_bins, rows[t]);
   }
   __syncthreads();
   for (int b = t; b < n_bins; b += blockDim.x) {
@@ -158,4 +176,83 @@ SIFT_EXPORT int sift_orientation_prefix(const float* gauss, int Hp, int Wp,
   return launch_orientation(gauss, Hp, Wp, plane, y, x, scale, nullptr, count, hist, ang,
                             npk, K, h, w, pad, n_bins, n_peaks, radius_factor,
                             lambda_ori, ratio, bstep, stream);
+}
+
+// ---------------------------------------------------------------------------
+// K8 (sift_orientation_perkey): raw 36-bin histograms, one keypoint per
+// block, launched once per scale bucket with that bucket's static window
+// bound r_max <= 16 (window_kernel="perkey"). Replaces
+// ops/pallas/orientation_kernel.py:orientation_histograms_pallas
+// (_kernel), which the JAX dispatcher orientation_histograms_bucketed runs
+// per bucket on compacted lanes: lane i is live iff i < *count, the count
+// read on the card. No peaks: the caller smooths the rows and takes
+// orientation_peaks, as the JAX extractor does for this mode.
+//
+// Designed for the card, not copied from K5: the block first stages the
+// keypoint's (2 r_max + 3)^2 window (<= 35 x 35 f32, 4.9 KB) in shared
+// memory with coalesced row reads, then thread r sums window row r from
+// there with K5's per-sample code, in K5's order (columns ascending, then
+// rows ascending per bin). Samples past a keypoint's radius add nothing, so
+// for a radius <= r_max (always, within its bucket) its raw row equals K5's
+// bit for bit.
+//
+// Bound on the H100: as K5, the latency of the per-row serial sums; the
+// window reads are the bytes (each live lane reads (2 r_max + 3)^2 floats
+// once and writes 36).
+__global__ void orientation_perkey_kernel(
+    const float* __restrict__ gauss, int Hp, int Wp, const int* __restrict__ plane,
+    const int* __restrict__ ys, const int* __restrict__ xs,
+    const float* __restrict__ scales, const int* __restrict__ count,
+    float* __restrict__ hist, int h, int w, int pad, int n_bins, int r_max,
+    float radius_factor, float lambda_ori, float bstep) {
+  __shared__ float win[(2 * R_ORI_MAX + 3) * (2 * R_ORI_MAX + 3)];
+  __shared__ float rows[2 * R_ORI_MAX + 1][MAX_BINS + 1];
+  int k = blockIdx.x;
+  int t = threadIdx.x;
+  float* hrow = hist + (long long)k * n_bins;
+  if (k >= *count) {
+    for (int b = t; b < n_bins; b += blockDim.x) hrow[b] = 0.0f;
+    return;
+  }
+  float radius, gws;
+  int ri = orientation_lane(scales[k], radius_factor, lambda_ori, r_max, &radius, &gws);
+  int n = 2 * ri + 1;
+  int y = ys[k], x = xs[k];
+  int wn = 2 * r_max + 3;
+  const float* g0 = gauss + (long long)plane[k] * Hp * Wp +
+                    (long long)(y + pad - r_max - 1) * Wp + (x + pad - r_max - 1);
+  for (int i = t; i < wn * wn; i += blockDim.x) win[i] = g0[(i / wn) * Wp + i % wn];
+  for (int i = t; i < n * n_bins; i += blockDim.x) rows[i / n_bins][i % n_bins] = 0.0f;
+  __syncthreads();
+  if (t < n) {
+    int dy = t - ri;
+    int yy = y + dy;
+    if (fabsf((float)dy) <= radius && yy >= 1 && yy <= h - 2)
+      orientation_row(win + (r_max + 1 + dy) * wn + r_max + 1, wn, dy, ri, radius, x, w,
+                      gws, bstep, n_bins, rows[t]);
+  }
+  __syncthreads();
+  for (int b = t; b < n_bins; b += blockDim.x) {
+    float acc = 0.0f;
+    for (int r = 0; r < n; ++r) acc = acc + rows[r][b];
+    hrow[b] = acc;
+  }
+}
+
+// gauss (n_planes, Hp, Wp) f32; plane/y/x (K,) int32 (y, x unpadded octave
+// coordinates, pad >= r_max + 1); scale (K,) f32; count: one int32 on the
+// device -> hist (K, n_bins) raw f32, zero for lanes >= count.
+SIFT_EXPORT int sift_orientation_perkey(const float* gauss, int Hp, int Wp,
+                                        const int* plane, const int* y, const int* x,
+                                        const float* scale, const int* count, float* hist,
+                                        int K, int h, int w, int pad, int n_bins, int r_max,
+                                        float radius_factor, float lambda_ori, float bstep,
+                                        cudaStream_t stream) {
+  if (n_bins > MAX_BINS || r_max > R_ORI_MAX || pad < r_max + 1)
+    return (int)cudaErrorInvalidValue;
+  if (K == 0) return 0;
+  orientation_perkey_kernel<<<K, 64, 0, stream>>>(gauss, Hp, Wp, plane, y, x, scale, count,
+                                                  hist, h, w, pad, n_bins, r_max,
+                                                  radius_factor, lambda_ori, bstep);
+  return (int)cudaGetLastError();
 }

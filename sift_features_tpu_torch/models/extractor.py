@@ -13,6 +13,13 @@ With a features_limit the descriptors wait: `_assemble_budget` takes each
 frame's response top-K over all octaves first and describes only the chosen
 keypoints (K6′ through `descriptor_hist_bucketed`).
 
+The other modes of SiftConfig give the same output through other kernels:
+refine_mode="region" runs K10 for the first region_steps Newton steps and
+K4 after them, refine_mode="tile" the K11 tile walk (escapes re-refined by
+K4), refine_mode="step" K4 only; window_kernel="perkey" replaces K5 / K5′
+by K8 and K6 / K6′ by K7, launched per scale bucket, with the peaks taken
+from the smoothed histograms.
+
 The per-frame path `_extract_single` builds each octave level by level (K9)
 and runs the single-frame `_detect_octave`: K2′ words (or the plain extremum
 scan), K3 or K4, K5′ histograms, K6′ descriptors. `extract_with_precomputed`
@@ -42,7 +49,8 @@ from ..ops.kernels.orientation import (orientation_hist_peaks,
                                        orientation_histograms_bucketed)
 from ..ops.kernels.pyramid import (build_octave_padded, octave_fused,
                                    reflect_pad_image)
-from ..ops.kernels.refine import refine_stepwise, refine_walk
+from ..ops.kernels.refine import (refine_region, refine_stepwise,
+                                  refine_tile, refine_walk)
 from ..ops.pyramid import (build_dog, build_scale_space, create_seed_image,
                            octave_levels)
 from ..ops.resize import resize_nearest_half
@@ -136,12 +144,14 @@ def _keypoints(surv, ci, kp_angle, evalid, octave: int, cfg: SiftConfig):
 
 def _refine_auto(dog_flat, s0, y0, x0, valid, pad: int, h: int, w: int,
                  cfg: SiftConfig, plane_off=None):
-    """The refinement dispatch of ops/extrema.py:refine_tpu_auto: the K3 walk
-    in walk mode when the stack is f32 with rows % 8 == 0 and columns % 128
-    == 0, else the K4 step loop."""
+    """The refinement dispatch of ops/extrema.py:refine_tpu_auto: when the
+    stack is f32 with rows % 8 == 0 and columns % 128 == 0, refine_mode
+    picks the K11 tile walk, the K3 walk, the K10-then-K4 region loop or
+    the K4 step loop; otherwise the K4 step loop. All give the same rows."""
     hp, wp = dog_flat.shape[-2], dog_flat.shape[-1]
     tile_ok = dog_flat.dtype == F32 and hp % 8 == 0 and wp % 128 == 0
-    fn = refine_walk if cfg.refine_mode == "walk" and tile_ok else refine_stepwise
+    fn = {"tile": refine_tile, "walk": refine_walk, "region": refine_region,
+          "step": refine_stepwise}[cfg.refine_mode if tile_ok else "step"]
     return fn(dog_flat, s0, y0, x0, valid, pad, h, w, cfg, plane_off=plane_off)
 
 
@@ -172,15 +182,26 @@ def _detect_octave_batched(gauss_p, dog_p, octave: int, cfg: SiftConfig, hw,
     n_win = gauss_p.shape[1]
     gauss_flat = gauss_p.reshape(b * n_win, hp, wp)
     live2 = svalid.reshape(-1)
-    raw, angles_p, n_pk = orientation_hist_peaks(
-        gauss_flat, (surv["s"] - 1).reshape(-1) + _frame_offsets(b, n_win, k2, dev),
-        surv["y"].reshape(-1), surv["x"].reshape(-1),
-        surv["kp_scale"].reshape(-1), live2, h, w, p, cfg)
-    n_pk_cap = angles_p.shape[1]
-    if bool(((n_pk > n_pk_cap) & live2).any()):
-        # a survivor has more peaks than the kernel's slots: the full
-        # peaks over the smoothed histograms (extractor.py:342-354)
-        angles, emit = ori_ops.orientation_peaks(ori_ops.smooth(raw), cfg)
+    ori_args = (gauss_flat, (surv["s"] - 1).reshape(-1)
+                + _frame_offsets(b, n_win, k2, dev))
+    if cfg.window_kernel == "perkey":
+        # K8 per scale bucket, no peaks in the kernel
+        hist = orientation_histograms_bucketed(
+            *ori_args, surv["s"].reshape(-1), surv["y"].reshape(-1),
+            surv["x"].reshape(-1), surv["kp_scale"].reshape(-1), None, h, w,
+            p, cfg, live=live2)
+    else:
+        raw, angles_p, n_pk = orientation_hist_peaks(
+            *ori_args, surv["y"].reshape(-1), surv["x"].reshape(-1),
+            surv["kp_scale"].reshape(-1), live2, h, w, p, cfg)
+        n_pk_cap = angles_p.shape[1]
+        # a survivor with more peaks than the kernel's slots takes the
+        # full peaks too
+        hist = (ori_ops.smooth(raw)
+                if bool(((n_pk > n_pk_cap) & live2).any()) else None)
+    if hist is not None:
+        # the full peaks over the smoothed histograms (extractor.py:342-354)
+        angles, emit = ori_ops.orientation_peaks(hist, cfg)
         ci, kp_angle, evalid, n_emit = _emit(
             angles.reshape(b, k2, n_bins), emit.reshape(b, k2, n_bins), svalid, m)
     else:
@@ -202,10 +223,17 @@ def _detect_octave_batched(gauss_p, dog_p, octave: int, cfg: SiftConfig, hw,
                           "kp_sc": d_in["kp_sc"], "kp_angle": kp_angle}
         res["win_ctx"] = (gauss_flat, n_win)
         return res
-    hist = descriptor_hist(
-        gauss_flat, (d_in["kp_s"] - 1).reshape(-1) + _frame_offsets(b, n_win, m, dev),
-        xi.reshape(-1), yi.reshape(-1), d_in["kp_sc"].reshape(-1),
-        kp_angle.reshape(-1), evalid.reshape(-1), h, w, p, cfg)
+    desc_args = (gauss_flat, (d_in["kp_s"] - 1).reshape(-1)
+                 + _frame_offsets(b, n_win, m, dev))
+    desc_lanes = (xi.reshape(-1), yi.reshape(-1), d_in["kp_sc"].reshape(-1),
+                  kp_angle.reshape(-1))
+    if cfg.window_kernel == "perkey":
+        hist = descriptor_hist_bucketed(
+            *desc_args, d_in["kp_s"].reshape(-1), *desc_lanes, None, h, w, p,
+            cfg, live=evalid.reshape(-1))
+    else:
+        hist = descriptor_hist(*desc_args, *desc_lanes, evalid.reshape(-1), h,
+                               w, p, cfg)
     res["desc"] = desc_ops.finalize_descriptor(hist, cfg).reshape(b, m, -1)
     return res
 
@@ -214,7 +242,8 @@ def _describe_subset(gauss_flat, win_planes: int, fields, live,
                      cfg: SiftConfig, h: int, w: int):
     """Descriptors (B, C, 128) u8 of a compacted keypoint subset: fields are
     (B, C) tensors of `desc_in` gathered at the chosen rows, live the (B, C)
-    mask (models/extractor.py:_describe_subset); K6′ serves it."""
+    mask (models/extractor.py:_describe_subset); K6′ serves it, or K7 with
+    window_kernel="perkey"."""
     b, c = fields["kp_s"].shape
     kp_s = fields["kp_s"].reshape(-1)
     hist = descriptor_hist_bucketed(

@@ -30,4 +30,12 @@ KERNELS = {
             "sift_features_tpu/ops/pallas/descriptor_packed.py:358"),
     "K9": ("sift_features_tpu_torch/csrc/pyramid.cu",
            "sift_features_tpu/ops/pallas/pyramid_kernel.py:128"),
+    "K7": ("sift_features_tpu_torch/csrc/descriptor.cu",
+           "sift_features_tpu/ops/pallas/descriptor_kernel.py:248"),
+    "K8": ("sift_features_tpu_torch/csrc/orientation.cu",
+           "sift_features_tpu/ops/pallas/orientation_kernel.py:205"),
+    "K10": ("sift_features_tpu_torch/csrc/refine.cu",
+            "sift_features_tpu/ops/pallas/refine_region_kernel.py:204"),
+    "K11": ("sift_features_tpu_torch/csrc/refine.cu",
+            "sift_features_tpu/ops/pallas/refine_tile_kernel.py:291"),
 }

@@ -1,4 +1,4 @@
-"""K6 and K6′: 4x4x8 descriptor histograms over a rotated window.
+"""K6, K6′ and K7: 4x4x8 descriptor histograms over a rotated window.
 
 K6 (`descriptor_hist`, a per-lane live flag) replaces
 sift_features_tpu/ops/pallas/descriptor_packed.py:descriptor_hist_packed_masked,
@@ -14,6 +14,12 @@ main path). The CUDA kernel is
 csrc/descriptor.cu; its note gives the bound and the design.
 `finalize_descriptor` (ops/descriptor.py) turns the raw histograms into u8.
 
+K7 (`descriptor_hist_perkey`, count prefix) replaces
+ops/pallas/descriptor_kernel.py:descriptor_hist_pallas, which the JAX
+dispatcher launches per scale bucket with the bucket's static window bound
+when window_kernel="perkey"; `descriptor_hist_bucketed` here does the same
+then.
+
 Per-sample math follows the TPU kernel in f32 (Cephes atan2, the
 (u_row * u_col) * (m * u_ori) product order); sin, cos and exp round once
 from f64. Summation order, kernel and plain version alike: window row r
@@ -26,6 +32,7 @@ stated tolerance.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -34,7 +41,7 @@ from ...config import SiftConfig
 from ..descriptor import DEG2RAD_F32, R_DESC_MAX
 from ..orientation import window_index
 from ..util import atan2_f32, f32, round_half_away, sqrt_f32
-from ...utils.compact import compact_indices
+from ...utils.compact import compact_indices, per_bucket
 from . import build
 
 F32 = torch.float32
@@ -52,24 +59,25 @@ def _params(cfg: SiftConfig) -> dict:
 
 def descriptor_plain(gauss_flat: torch.Tensor, plane, xi, yi, kp_scale, angle,
                      live, h: int, w: int, pad: int, cfg: SiftConfig,
-                     chunk: int = 1024) -> torch.Tensor:
-    """Plain version of K6. gauss_flat (L, Hp, Wp); plane/xi/yi (M,) int
-    ((yi, xi) the rounded unpadded octave position); kp_scale/angle (M,)
-    f32; live (M,) bool -> raw hist (M, 128) f32, zero on dead lanes."""
+                     chunk: int = 1024, r_max: int = R_DESC_MAX) -> torch.Tensor:
+    """Plain version of K6 (and, with a bucket's r_max, of K7). gauss_flat
+    (L, Hp, Wp); plane/xi/yi (M,) int ((yi, xi) the rounded unpadded octave
+    position); kp_scale/angle (M,) f32; live (M,) bool -> raw hist (M, 128)
+    f32, zero on dead lanes. A live radius above r_max raises."""
     out = torch.zeros((plane.shape[0], cfg.descriptor_size), dtype=F32,
                       device=gauss_flat.device)
     idx = torch.nonzero(live.bool())[:, 0]      # dead lanes stay zero
     for c0 in range(0, idx.shape[0], chunk):
         sel = idx[c0:c0 + chunk]
         out[sel] = _hist(gauss_flat, plane[sel], xi[sel], yi[sel],
-                         kp_scale[sel], angle[sel], live[sel], h, w, pad, cfg)
+                         kp_scale[sel], angle[sel], live[sel], h, w, pad, cfg,
+                         r_max)
     return out
 
 
-def _hist(gauss_flat, plane, xi, yi, kp_scale, angle, live, h, w, pad, cfg):
+def _hist(gauss_flat, plane, xi, yi, kp_scale, angle, live, h, w, pad, cfg, R):
     n_hist, n_bins = cfg.descriptor_n_histograms, cfg.descriptor_n_bins
     D = n_hist * n_hist * n_bins
-    R = R_DESC_MAX
     L, hp, wp = gauss_flat.shape
     prm = _params(cfg)
     dev = plane.device
@@ -84,7 +92,7 @@ def _hist(gauss_flat, plane, xi, yi, kp_scale, angle, live, h, w, pad, cfg):
     radius = round_half_away(hw * f32(prm["sqrt2"], hw) * f32(n_hist + 1, hw)
                              * f32(0.5, hw))
     if bool(((radius > R) & live).any()):
-        raise ValueError(f"descriptor radius exceeds R_DESC_MAX={R}")
+        raise ValueError(f"descriptor radius exceeds the window bound {R}")
     ori_rad = orientation * f32(prm["deg2rad"], angle)
     sin_s = torch.sin(ori_rad.double()).to(F32) / hw
     cos_s = torch.cos(ori_rad.double()).to(F32) / hw
@@ -225,6 +233,66 @@ def descriptor_hist_prefix(gauss_flat: torch.Tensor, plane, xi, yi, kp_scale,
     return hist
 
 
+def bucket_radii(cfg: SiftConfig) -> dict[int, int]:
+    """Per-scale-level window bound of the descriptor histograms
+    (ops/pallas/descriptor_kernel.py:bucket_radii): radius
+    round(lambda_descr kp_scale sqrt2 (n_hist + 1) / 2) with kp_scale <
+    sigma_min inv_delta_min 2^((s + 0.5) / S)."""
+    factor = (cfg.lambda_descr * math.sqrt(2.0)
+              * (cfg.descriptor_n_histograms + 1) / 2.0)
+    out = {}
+    for s in range(1, cfg.scales_per_octave + 1):
+        scl_max = (cfg.sigma_min * cfg.inv_delta_min
+                   * 2.0 ** ((s + 0.5) / cfg.scales_per_octave))
+        out[s] = int(round(factor * scl_max))
+    if max(out.values()) > R_DESC_MAX:
+        raise ValueError(f"descriptor window radius {max(out.values())} "
+                         f"exceeds the kernel bound R_DESC_MAX={R_DESC_MAX}")
+    return out
+
+
+def descriptor_hist_perkey(gauss_flat: torch.Tensor, plane, xi, yi, kp_scale,
+                           angle, count, h: int, w: int, pad: int, r_max: int,
+                           cfg: SiftConfig) -> torch.Tensor:
+    """K7 wrapper -> raw hist (M, 128) f32 over windows of half-width
+    r_max; lane i is live iff i < count, a 0-d integer tensor on
+    gauss_flat's device. The plain version for a CPU tensor; the CUDA
+    kernel, which reads the count on the card, for a CUDA tensor (or an
+    error)."""
+    if gauss_flat.device.type == "cpu":
+        live = torch.arange(plane.shape[0]) < count
+        return descriptor_plain(gauss_flat, plane, xi, yi, kp_scale, angle,
+                                live, h, w, pad, cfg, r_max=r_max)
+    L, hp, wp = gauss_flat.shape
+    plane = torch.clamp(plane, 0, L - 1).to(torch.int32).contiguous()
+    yi = torch.clamp(yi, 0, h - 1).to(torch.int32).contiguous()
+    xi = torch.clamp(xi, 0, w - 1).to(torch.int32).contiguous()
+    count = count.reshape(1).to(torch.int32).contiguous()
+    kp_scale = kp_scale.to(F32).contiguous()
+    angle = angle.to(F32).contiguous()
+    build.require_cuda("descriptor_hist_perkey", gauss_flat, plane, xi, yi,
+                       kp_scale, angle, count)
+    M = plane.shape[0]
+    hist = torch.empty((M, cfg.descriptor_size), dtype=F32,
+                       device=gauss_flat.device)
+    prm = _params(cfg)
+    fn = build.bind("descriptor", "sift_descriptor_perkey",
+                    [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
+                    + [ctypes.c_int] * 7 + [ctypes.c_float] * 6
+                    + [ctypes.c_void_p])
+    rc = fn(build.ptr(gauss_flat), hp, wp, build.ptr(plane), build.ptr(yi),
+            build.ptr(xi), build.ptr(kp_scale), build.ptr(angle),
+            build.ptr(count), build.ptr(hist), M, h, w, pad, r_max,
+            cfg.descriptor_n_histograms, cfg.descriptor_n_bins,
+            float(np.float32(cfg.lambda_descr)), float(prm["sqrt2"]),
+            float(prm["deg2rad"]), float(prm["rad2deg"]),
+            float(prm["bin_step"]), float(prm["wscale"]),
+            build.stream_ptr(gauss_flat))
+    build.check(rc, "K7 descriptor_perkey")
+    build.count_launch("K7")
+    return hist
+
+
 def descriptor_hist_bucketed(gauss_flat: torch.Tensor, s_img, s_level, xi, yi,
                              kp_scale, angle, count, h: int, w: int, pad: int,
                              cfg: SiftConfig, live=None) -> torch.Tensor:
@@ -232,12 +300,24 @@ def descriptor_hist_bucketed(gauss_flat: torch.Tensor, s_img, s_level, xi, yi,
     -> raw hist (M, 128) f32. s_img (M,) is the plane to sample, s_level
     (M,) the scale level in [1, S] (the JAX bucket key: lanes outside it
     stay zero); liveness is lane < count, or `live` (M,) bool when given.
-    The JAX dispatcher compacts and launches per scale bucket; one K6′
-    launch here serves every radius, so the live lanes are compacted once
-    into a count prefix (count kept on the device) and restored by rank.
-    Per-keypoint output is the same."""
+
+    window_kernel="perkey": the JAX rule, each scale bucket compacted
+    (count kept on the device), served by K7 at the bucket's window bound
+    and restored by rank. "packed": one K6′ launch serves every radius, so
+    with `live` the live lanes are compacted once into a count prefix and
+    restored by rank. Per-keypoint output is the same."""
     M = s_img.shape[0]
     in_range = (s_level >= 1) & (s_level <= cfg.scales_per_octave)
+    if cfg.window_kernel == "perkey":
+        if live is None:
+            live = torch.arange(M, device=s_img.device) < count
+        return per_bucket(live, s_level, bucket_radii(cfg),
+                          lambda idx, n, r_max: descriptor_hist_perkey(
+                              gauss_flat, s_img[idx], xi[idx], yi[idx],
+                              kp_scale[idx], angle[idx], n, h, w, pad, r_max,
+                              cfg),
+                          torch.zeros((M, cfg.descriptor_size), dtype=F32,
+                                      device=gauss_flat.device))
     if live is None:
         hist = descriptor_hist_prefix(gauss_flat, s_img, xi, yi, kp_scale,
                                       angle, count, h, w, pad, cfg)

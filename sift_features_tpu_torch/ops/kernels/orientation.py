@@ -1,4 +1,5 @@
-"""K5 and K5′: 36-bin orientation histograms with in-kernel peaks.
+"""K5, K5′ and K8: 36-bin orientation histograms (K5 / K5′ with in-kernel
+peaks).
 
 K5 (`orientation_hist_peaks`, a per-lane live flag) replaces
 sift_features_tpu/ops/pallas/orientation_packed.py:
@@ -13,6 +14,12 @@ that dispatcher's counterpart for count-prefix input. Both are one
 scale: the bucket radius {1: 10, 2: 13, 3: 16} is only a buffer bound, and the per-keypoint radius round_half_away(4.5 *
 scale) is at most R_ORI_MAX = 16 on the main path. The CUDA kernel is
 csrc/orientation.cu; its note gives the bound and the design.
+
+K8 (`orientation_hist_perkey`, count prefix, no peaks) replaces
+ops/pallas/orientation_kernel.py:orientation_histograms_pallas, which the
+JAX dispatcher launches per scale bucket with the bucket's static window
+bound when window_kernel="perkey"; `orientation_histograms_bucketed` here
+does the same then.
 
 Outputs per lane: the RAW histogram (smoothing runs outside, as `_smooth`
 does in the JAX extractor), the first N_PEAKS_CAP peak angles of the smoothed
@@ -37,6 +44,7 @@ import torch
 from ...config import SiftConfig
 from ..orientation import R_ORI_MAX, orientation_peaks, smooth, window_index
 from ..util import atan2_f32, f32, round_half_away, sqrt_f32
+from ...utils.compact import per_bucket
 from . import build
 
 F32 = torch.float32
@@ -68,14 +76,8 @@ def orientation_plain(gauss_flat: torch.Tensor, plane, y, x, kp_scale, live,
                       chunk: int = 8192):
     """Plain version of K5. gauss_flat (L, Hp, Wp); plane/y/x (K,) (y, x
     unpadded octave coordinates); kp_scale (K,) f32; live (K,) bool."""
-    n_bins = cfg.n_orientation_bins
-    raw = torch.zeros((plane.shape[0], n_bins), dtype=F32,
-                      device=gauss_flat.device)
-    idx = torch.nonzero(live.bool())[:, 0]      # dead lanes stay zero
-    for c0 in range(0, idx.shape[0], chunk):
-        sel = idx[c0:c0 + chunk]
-        raw[sel] = _raw_hist(gauss_flat, plane[sel], y[sel], x[sel],
-                             kp_scale[sel], live[sel], h, w, pad, cfg)
+    raw = orientation_raw_plain(gauss_flat, plane, y, x, kp_scale, live, h, w,
+                                pad, cfg, R_ORI_MAX, chunk)
     angles, n_peaks = first_peaks(smooth(raw), cfg)
     dead = ~live.bool()
     angles = torch.where(dead[:, None], torch.zeros_like(angles), angles)
@@ -83,8 +85,23 @@ def orientation_plain(gauss_flat: torch.Tensor, plane, y, x, kp_scale, live,
     return raw, angles, n_peaks
 
 
-def _raw_hist(gauss_flat, plane, y, x, kp_scale, live, h, w, pad, cfg):
-    R = R_ORI_MAX
+def orientation_raw_plain(gauss_flat: torch.Tensor, plane, y, x, kp_scale,
+                          live, h: int, w: int, pad: int, cfg: SiftConfig,
+                          r_max: int, chunk: int = 8192) -> torch.Tensor:
+    """Raw (K, n_bins) histograms over windows of half-width <= r_max (the
+    plain version of K8; K5's raw rows with r_max = R_ORI_MAX). Dead lanes
+    are zero."""
+    raw = torch.zeros((plane.shape[0], cfg.n_orientation_bins), dtype=F32,
+                      device=gauss_flat.device)
+    idx = torch.nonzero(live.bool())[:, 0]      # dead lanes stay zero
+    for c0 in range(0, idx.shape[0], chunk):
+        sel = idx[c0:c0 + chunk]
+        raw[sel] = _raw_hist(gauss_flat, plane[sel], y[sel], x[sel],
+                             kp_scale[sel], live[sel], h, w, pad, cfg, r_max)
+    return raw
+
+
+def _raw_hist(gauss_flat, plane, y, x, kp_scale, live, h, w, pad, cfg, R):
     n_bins = cfg.n_orientation_bins
     L, hp, wp = gauss_flat.shape
     radius_factor, bstep = _params(cfg)
@@ -193,21 +210,98 @@ def orientation_hist_prefix(gauss_flat: torch.Tensor, plane, y, x, kp_scale,
     return out
 
 
+def bucket_radii_ori(cfg: SiftConfig) -> dict[int, int]:
+    """Per-scale-level window bound of the orientation histograms
+    (ops/pallas/orientation_kernel.py:bucket_radii_ori): radius
+    round(3 lambda_ori kp_scale) with kp_scale < sigma_min inv_delta_min
+    2^((s + 0.5) / S)."""
+    factor = 3.0 * cfg.lambda_ori
+    out = {}
+    for s in range(1, cfg.scales_per_octave + 1):
+        scl_max = (cfg.sigma_min * cfg.inv_delta_min
+                   * 2.0 ** ((s + 0.5) / cfg.scales_per_octave))
+        out[s] = int(round(factor * scl_max))
+    if max(out.values()) > R_ORI_MAX:
+        raise ValueError(f"orientation window radius {max(out.values())} "
+                         f"exceeds the kernel bound R_ORI_MAX={R_ORI_MAX}")
+    return out
+
+
+def orientation_hist_perkey(gauss_flat: torch.Tensor, plane, y, x, kp_scale,
+                            count, h: int, w: int, pad: int, r_max: int,
+                            cfg: SiftConfig) -> torch.Tensor:
+    """K8 wrapper -> raw (K, n_bins) f32 histograms over windows of
+    half-width <= r_max; lane i is live iff i < count, a 0-d integer tensor
+    on gauss_flat's device. The plain version for a CPU tensor; the CUDA
+    kernel, which reads the count on the card, for a CUDA tensor (or an
+    error)."""
+    if gauss_flat.device.type == "cpu":
+        live = torch.arange(plane.shape[0]) < count
+        return orientation_raw_plain(gauss_flat, plane, y, x, kp_scale, live,
+                                     h, w, pad, cfg, r_max)
+    L, hp, wp = gauss_flat.shape
+    plane = torch.clamp(plane, 0, L - 1).to(torch.int32).contiguous()
+    y = torch.clamp(y, 0, h - 1).to(torch.int32).contiguous()
+    x = torch.clamp(x, 0, w - 1).to(torch.int32).contiguous()
+    count = count.reshape(1).to(torch.int32).contiguous()
+    kp_scale = kp_scale.to(F32).contiguous()
+    build.require_cuda("orientation_hist_perkey", gauss_flat, plane, y, x,
+                       kp_scale, count)
+    K = plane.shape[0]
+    hist = torch.empty((K, cfg.n_orientation_bins), dtype=F32,
+                       device=gauss_flat.device)
+    radius_factor, bstep = _params(cfg)
+    fn = build.bind("orientation", "sift_orientation_perkey",
+                    [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+                    + [ctypes.c_int] * 6 + [ctypes.c_float] * 3
+                    + [ctypes.c_void_p])
+    rc = fn(build.ptr(gauss_flat), hp, wp, build.ptr(plane), build.ptr(y),
+            build.ptr(x), build.ptr(kp_scale), build.ptr(count),
+            build.ptr(hist), K, h, w, pad, cfg.n_orientation_bins, r_max,
+            float(radius_factor), float(np.float32(cfg.lambda_ori)),
+            float(bstep), build.stream_ptr(gauss_flat))
+    build.check(rc, "K8 orientation_perkey")
+    build.count_launch("K8")
+    return hist
+
+
 def orientation_histograms_bucketed(gauss_flat: torch.Tensor, s_img, s_level,
                                     y, x, kp_scale, count, h: int, w: int,
                                     pad: int, cfg: SiftConfig,
-                                    with_peaks: bool = False):
+                                    with_peaks: bool = False, live=None):
     """Counterpart of ops/pallas/orientation_kernel.py:
-    orientation_histograms_bucketed (count-prefix liveness) -> the SMOOTHED
-    (K, n_bins) histograms, and with `with_peaks` also (angles (K,
-    N_PEAKS_CAP), n_peaks (K,)). s_img (K,) is the plane to sample, s_level
-    (K,) the scale level in [1, S] (the JAX bucket key: lanes outside it
-    stay zero); lane i is live iff i < count. One K5′ launch serves every
-    radius; per-keypoint output is the same as the JAX dispatcher's."""
-    in_range = ((s_level >= 1) & (s_level <= cfg.scales_per_octave))
+    orientation_histograms_bucketed -> the SMOOTHED (K, n_bins) histograms,
+    and with `with_peaks` also (angles (K, N_PEAKS_CAP), n_peaks (K,)).
+    s_img (K,) is the plane to sample, s_level (K,) the scale level in
+    [1, S] (the JAX bucket key: lanes outside it stay zero); lane i is live
+    iff i < count, or (perkey) `live` (K,) bool when given.
+
+    window_kernel="packed": one K5′ launch serves every radius (count
+    prefix only). "perkey": the JAX rule, each scale bucket compacted
+    (count kept on the device) and served by K8 at the bucket's window
+    bound, rows restored by rank; K8 has no peaks, so with_peaks is refused
+    there (callers take orientation_peaks of the histograms). Per-keypoint
+    output is the same either way."""
+    K = s_img.shape[0]
+    in_range = (s_level >= 1) & (s_level <= cfg.scales_per_octave)
+    zero = torch.zeros((), dtype=F32, device=gauss_flat.device)
+    if cfg.window_kernel == "perkey":
+        if with_peaks:
+            raise ValueError("K8 has no peaks: take orientation_peaks of "
+                             "the histograms")
+        if live is None:
+            live = torch.arange(K, device=s_img.device) < count
+        raw = per_bucket(live, s_level, bucket_radii_ori(cfg),
+                         lambda idx, n, r_max: orientation_hist_perkey(
+                             gauss_flat, s_img[idx], y[idx], x[idx],
+                             kp_scale[idx], n, h, w, pad, r_max, cfg),
+                         torch.zeros((K, cfg.n_orientation_bins), dtype=F32,
+                                     device=gauss_flat.device))
+        return smooth(raw)
+    if live is not None:
+        raise ValueError("the packed dispatcher takes a count prefix")
     raw, ang, npk = orientation_hist_prefix(gauss_flat, s_img, y, x, kp_scale,
                                             count, h, w, pad, cfg)
-    zero = torch.zeros((), dtype=F32, device=raw.device)
     hist = smooth(torch.where(in_range[:, None], raw, zero))
     if not with_peaks:
         return hist

@@ -1,13 +1,19 @@
-"""K3 and K4: Newton refinement of DoG extrema.
+"""K3, K4, K10 and K11: Newton refinement of DoG extrema.
 
 K3 (`refine_walk`) replaces sift_features_tpu/ops/pallas/refine_walk_kernel.py:
 refine_walk_tpu (`_kernel`): the whole <= max_interpolation_steps loop in
 one launch. K4 (`refine_step`) replaces ops/pallas/refine_kernel.py:
 refine_step_pallas (`_kernel`): one masked step, which `refine_stepwise`
-drives step by step (refine_mode="step"). Both CUDA entries live in
-csrc/refine.cu and share one __device__ Newton function; its note gives the
-bound (latency of ~27 scattered reads per candidate step) and why the port's
-K3 never escapes to K4.
+drives step by step (refine_mode="step"). K10 (`refine_step_region`)
+replaces ops/pallas/refine_region_kernel.py:_region_call: the same step
+with co-located candidates sharing one staged window; `refine_region` runs
+it for the first region_steps steps and K4 after (refine_mode="region").
+K11 (`refine_tile_slots`) replaces ops/pallas/refine_tile_kernel.py:
+_refine_tile_call: the whole walk of tile-grouped candidates from a
+shared-memory window; `refine_tile` groups, launches it and re-refines the
+escaped walks with the K4 loop (refine_mode="tile"). All four CUDA entries
+live in csrc/refine.cu and share one __device__ Newton function; the notes
+there give each kernel's bound and design.
 
 Rows are (K, 16) f32 in the layout of ops/extrema.py (ROW_COLS).
 """
@@ -19,8 +25,17 @@ import ctypes
 import torch
 
 from ...config import SiftConfig
+from ...utils.compact import compact_indices
+from ...utils.region_group import RegionLayout, group_by_region, merge_escaped
 from ..extrema import ROW_COLS, newton_step, refine, refine_loop
 from . import build
+
+# K10's region: the JAX region key's 8-row x 128-column bands
+# (refine_region_kernel.py:250-253)
+REGION_ROWS, REGION_COLS = 8, 128
+# K11's geometry (csrc/refine.cu gives the reason): 32 x 64 regions, an
+# 8-cell margin, blocks of 16 slots
+TILE_R, TILE_C, TILE_MARGIN, TILE_BK = 32, 64, 8, 16
 
 
 def _i32(t: torch.Tensor) -> torch.Tensor:
@@ -91,3 +106,191 @@ def refine_walk(dog_flat: torch.Tensor, s0, y0, x0, valid, pad: int, h: int,
     build.check(rc, "K3 refine_walk")
     build.count_launch("K3")
     return out
+
+
+def region_order(p, y, x, active, n_planes: int, hp: int, wp: int) -> dict:
+    """K10's grouping, on the lanes' device with no host sync: the clamped
+    positions (K4's clamps) sorted stably by the JAX region key (inactive
+    lanes last), the original index of each sorted lane, where each region's
+    run starts, and the run and active counts as 0-d tensors."""
+    p = torch.clamp(p.long(), 1, n_planes - 2)
+    y = torch.clamp(y.long(), 1, hp - 2)
+    x = torch.clamp(x.long(), 1, wp - 2)
+    active = active.bool()
+    nry, nrx = -(-hp // REGION_ROWS), -(-wp // REGION_COLS)
+    n_regions = n_planes * nry * nrx
+    key = (p * nry + (y - 1) // REGION_ROWS) * nrx + (x - 1) // REGION_COLS
+    key = torch.where(active, key, torch.full_like(key, n_regions))
+    key_s, perm = torch.sort(key, stable=True)
+    first = torch.ones_like(active)
+    first[1:] = key_s[1:] != key_s[:-1]
+    n_blocks = min(p.shape[0], n_regions)
+    run_start, _, n_runs = compact_indices(first & (key_s < n_regions), n_blocks)
+    return {"p": p[perm], "y": y[perm], "x": x[perm], "active": active[perm],
+            "perm": perm, "run_start": run_start, "n_runs": n_runs,
+            "n_active": active.sum(), "n_blocks": n_blocks}
+
+
+def region_step_plain(dog_flat: torch.Tensor, g: dict,
+                      cfg: SiftConfig) -> torch.Tensor:
+    """Plain version of K10: newton_step on the region order of
+    `region_order`, the rows put back in the original order by the
+    permutation."""
+    out = torch.zeros((g["perm"].shape[0], ROW_COLS), dtype=torch.float32,
+                      device=dog_flat.device)
+    out[g["perm"]] = newton_step(dog_flat, g["p"], g["y"], g["x"], g["active"],
+                                 cfg)
+    return out
+
+
+def region_step(dog_flat: torch.Tensor, g: dict, cfg: SiftConfig) -> torch.Tensor:
+    """K10 on lanes grouped by `region_order`: the plain version for a CPU
+    tensor; the CUDA kernel for a CUDA tensor (or an error)."""
+    if dog_flat.device.type == "cpu":
+        return region_step_plain(dog_flat, g, cfg)
+    _, hp, wp = dog_flat.shape
+    out = torch.zeros((g["perm"].shape[0], ROW_COLS), dtype=torch.float32,
+                      device=dog_flat.device)
+    sp, yp, xp, perm, run_start, n_runs, n_act = (
+        _i32(g[k]) for k in ("p", "y", "x", "perm", "run_start", "n_runs",
+                             "n_active"))
+    n_runs, n_act = n_runs.reshape(1), n_act.reshape(1)
+    build.require_cuda("refine_step_region", dog_flat, sp, yp, xp, perm,
+                       run_start, n_runs, n_act)
+    fn = build.bind("refine", "sift_refine_region",
+                    [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                    + [ctypes.c_int] + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+    rc = fn(build.ptr(dog_flat), hp, wp, build.ptr(sp), build.ptr(yp),
+            build.ptr(xp), build.ptr(perm), build.ptr(run_start),
+            build.ptr(n_runs), build.ptr(n_act), build.ptr(out), g["n_blocks"],
+            float(cfg.contrast_threshold), float(cfg.edge_threshold),
+            float(cfg.scales_per_octave), build.stream_ptr(dog_flat))
+    build.check(rc, "K10 refine_step_region")
+    build.count_launch("K10")
+    return out
+
+
+def refine_step_region(dog_flat: torch.Tensor, p, y, x, active,
+                       cfg: SiftConfig) -> torch.Tensor:
+    """K10 wrapper: one masked Newton step, rows in the original lane order,
+    equal to K4's (`refine_step`): the lanes grouped by region, then
+    `region_step`."""
+    return region_step(dog_flat, region_order(p, y, x, active, *dog_flat.shape),
+                       cfg)
+
+
+def refine_region(dog_flat: torch.Tensor, s0, y0, x0, valid, pad: int,
+                  h: int, w: int, cfg: SiftConfig,
+                  plane_off=None) -> torch.Tensor:
+    """refine_mode="region": the Newton loop with K10 for the first
+    cfg.region_steps steps and K4 after them (ops/extrema.py:refine_tpu)."""
+    steps = iter(range(cfg.max_interpolation_steps))
+
+    def step(p, y, x, active):
+        fn = refine_step_region if next(steps) < cfg.region_steps else refine_step
+        return fn(dog_flat, p, y, x, active, cfg)
+
+    return refine_loop(step, s0, y0, x0, valid, pad, h, w, cfg, plane_off)
+
+
+def tile_layout(dog_flat: torch.Tensor, s0, y0, x0, valid, pad: int, cfg,
+                plane_off=None) -> RegionLayout:
+    """The candidates grouped at K11's geometry."""
+    n_dog = cfg.scales_per_octave + 2
+    n_planes, hp, wp = dog_flat.shape
+    m = TILE_MARGIN
+    return group_by_region(s0, y0, x0, valid, pad, hp, wp, n_dog,
+                           n_planes // n_dog, plane_off, TILE_R, TILE_C,
+                           TILE_R + 2 * m, TILE_C + 2 * m, m, m, TILE_BK)
+
+
+def _window(dog_flat: torch.Tensor) -> tuple[int, int]:
+    hp, wp = dog_flat.shape[-2:]
+    return min(TILE_R + 2 * TILE_MARGIN, hp), min(TILE_C + 2 * TILE_MARGIN, wp)
+
+
+def refine_tile_plain(dog_flat: torch.Tensor, g: RegionLayout, pad: int,
+                      h: int, w: int, cfg: SiftConfig) -> torch.Tensor:
+    """Plain version of K11: every slot's walk with K3's bookkeeping, its
+    cubes read at positions clamped into its block's window interior, and
+    the walk stopped and flagged (column 9) when it moves outside that
+    interior. -> (T_cap, 16) rows, zero on empty slots."""
+    S, b = cfg.scales_per_octave, cfg.image_border
+    lr, lw = _window(dog_flat)
+    blk = torch.arange(g.T_cap, device=dog_flat.device) // TILE_BK
+    r0, c0, pb = g.r0_b[blk], g.c0_b[blk], g.pb_b[blk]
+    s, y, x = g.s_slot, g.y_slot, g.x_slot
+    live = g.a_slot.bool()
+    conv = torch.zeros_like(live)
+    dead = ~live
+    esc = torch.zeros_like(live)
+    fields = torch.zeros((g.T_cap, 5), dtype=torch.float32,
+                         device=dog_flat.device)
+    for _ in range(cfg.max_interpolation_steps):
+        active = ~(conv | dead | esc)
+        out = newton_step(dog_flat, torch.clamp(s, 1, S) + pb,
+                          torch.clamp(y - r0, 1, lr - 2) + r0,
+                          torch.clamp(x - c0, 1, lw - 2) + c0, active, cfg)
+        ok = out[:, 0] > 0
+        newly = active & ok
+        conv |= newly
+        fields = torch.where(newly[:, None], out[:, 4:9], fields)
+        mv = active & ~ok
+        s = torch.where(mv, s + out[:, 1].int(), s)
+        y = torch.where(mv, y + out[:, 2].int(), y)
+        x = torch.where(mv, x + out[:, 3].int(), x)
+        bad = ((s < 1) | (s > S) | (x - pad < b) | (x - pad >= w - b)
+               | (y - pad < b) | (y - pad >= h - b))
+        dead |= mv & bad
+        esc |= mv & ~bad & ((y - r0 < 1) | (y - r0 > lr - 2)
+                            | (x - c0 < 1) | (x - c0 > lw - 2))
+    rows = torch.zeros((g.T_cap, ROW_COLS), dtype=torch.float32,
+                       device=dog_flat.device)
+    rows[:, 0] = conv.float()
+    rows[:, 1] = s.float()
+    rows[:, 2] = y.float()
+    rows[:, 3] = x.float()
+    rows[:, 4:9] = fields
+    rows[:, 9] = esc.float()
+    return torch.where(live[:, None], rows, torch.zeros_like(rows))
+
+
+def refine_tile_slots(dog_flat: torch.Tensor, g: RegionLayout, pad: int,
+                      h: int, w: int, cfg: SiftConfig) -> torch.Tensor:
+    """K11 wrapper -> (T_cap, 16) slot rows (column 9: escaped). The plain
+    version for a CPU tensor; the CUDA kernel for a CUDA tensor (or an
+    error)."""
+    if dog_flat.device.type == "cpu":
+        return refine_tile_plain(dog_flat, g, pad, h, w, cfg)
+    slots = [_i32(t) for t in (g.s_slot, g.y_slot, g.x_slot, g.a_slot, g.r0_b,
+                               g.c0_b, g.pb_b, g.active_b)]
+    build.require_cuda("refine_tile_slots", dog_flat, *slots)
+    _, hp, wp = dog_flat.shape
+    lr, lw = _window(dog_flat)
+    out = torch.zeros((g.T_cap, ROW_COLS), dtype=torch.float32,
+                      device=dog_flat.device)
+    fn = build.bind("refine", "sift_refine_tile",
+                    [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
+                    + [ctypes.c_int] * 10 + [ctypes.c_float] * 2
+                    + [ctypes.c_void_p])
+    rc = fn(build.ptr(dog_flat), hp, wp, *(build.ptr(t) for t in slots),
+            build.ptr(out), g.nb, TILE_BK, lr, lw, pad, h, w, cfg.image_border,
+            cfg.scales_per_octave, cfg.max_interpolation_steps,
+            float(cfg.contrast_threshold), float(cfg.edge_threshold),
+            build.stream_ptr(dog_flat))
+    build.check(rc, "K11 refine_tile")
+    build.count_launch("K11")
+    return out
+
+
+def refine_tile(dog_flat: torch.Tensor, s0, y0, x0, valid, pad: int, h: int,
+                w: int, cfg: SiftConfig, plane_off=None) -> torch.Tensor:
+    """refine_mode="tile" (ops/pallas/refine_tile_kernel.py:refine_tile_tpu):
+    group, walk in K11, gather the slot rows back to the candidates, and
+    re-refine the escaped walks from their original positions with the K4
+    loop. The rows equal the plain `refine`'s."""
+    g = tile_layout(dog_flat, s0, y0, x0, valid, pad, cfg, plane_off)
+    slots = refine_tile_slots(dog_flat, g, pad, h, w, cfg)
+    rows = slots[torch.clamp(g.slot_k.long(), 0, g.T_cap - 1)]
+    return merge_escaped(rows, valid, lambda esc: refine_stepwise(
+        dog_flat, s0, y0, x0, esc, pad, h, w, cfg, plane_off=plane_off))

@@ -68,3 +68,22 @@ def compact_words(words: torch.Tensor, capacity: int):
     count = popcount32(words).sum(dim=-1)
     idx = torch.where(valid, idx, torch.zeros_like(idx))
     return idx, valid, count
+
+
+def per_bucket(live: torch.Tensor, s_level: torch.Tensor, radii: dict, launch,
+               out: torch.Tensor) -> torch.Tensor:
+    """The per-scale-bucket dispatch of the JAX window kernels
+    (orientation_kernel.py / descriptor_kernel.py *_bucketed): for each
+    bucket si with window bound radii[si], the lanes live & (s_level == si)
+    are compacted into a count prefix (count kept on the device),
+    launch(idx, count, r_max) -> (N, ...) rows serves them, and each row
+    goes back to its lane by rank. out (N, ...) holds the other lanes'
+    rows."""
+    n = live.shape[0]
+    for si, r_max in radii.items():
+        maskb = live.bool() & (s_level == si)
+        idx, _, count = compact_indices(maskb, n)
+        rows = launch(idx, count, r_max)
+        rank = torch.clamp(torch.cumsum(maskb, 0) - 1, min=0)
+        out = torch.where(maskb[:, None], rows[rank], out)
+    return out

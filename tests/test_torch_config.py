@@ -35,9 +35,14 @@ def test_config_and_taps_bit_equal(fields):
 def test_config_unknown_field_and_unported_modes_raise():
     with pytest.raises(ValueError):
         config_from_reference({"not_a_field": 1})
-    for bad in ({"refine_mode": "tile"}, {"refine_mode": "region"},
-                {"window_kernel": "perkey"}, {"storage_dtype": "bfloat16"},
+    for bad in ({"storage_dtype": "bfloat16"}, {"storage_dtype": "split"},
                 {"gather_dtype": "bfloat16"}):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             check_supported(SiftConfig(**bad))
-    check_supported(SiftConfig(refine_mode="step"))
+    for bad in ({"refine_mode": "walks"}, {"window_kernel": "packd"}):
+        with pytest.raises(ValueError):
+            check_supported(SiftConfig(**bad))
+    for ported in ({"refine_mode": "step"}, {"refine_mode": "tile"},
+                   {"refine_mode": "region", "region_steps": 1},
+                   {"window_kernel": "perkey"}):
+        check_supported(SiftConfig(**ported))

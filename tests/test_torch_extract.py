@@ -8,7 +8,8 @@
   kernel path itself, since JAX `extract_batch` on the CPU takes
   `_extract_single`;
 - the port's `extract_batch(device="cpu")` on a 2 x 96 x 128 batch (7
-  octaves: 4 on the kernel path, 3 tiny) against JAX `extract_batch`;
+  octaves: 4 on the kernel path, 3 tiny) against JAX `extract_batch`, in
+  the default configuration and in each other refine and window mode;
 - the matcher against `_match_jit`.
 
 The JAX references are the expensive part (XLA:CPU compiles every
@@ -213,25 +214,40 @@ def test_batched_octave_matches_pallas_path(ref):
     assert diff.max() <= 1 and (diff > 0).mean() < 0.02
 
 
+# the port's modes, each held against the one JAX reference: the JAX
+# package gives identical outputs in every mode (config.py:98, :115-116).
+# One test runs them all: under pytest-xdist's --dist load, cases of a
+# parametrised test land on several workers, and each would compute the
+# ~60 s JAX reference again
+MODES = {"default": {}, "region": {"refine_mode": "region"},
+         "tile": {"refine_mode": "tile"}, "perkey": {"window_kernel": "perkey"}}
+
+
 def test_extract_batch_matches_jax(ref):
     want = ref["extract"]
-    got = {k: v.numpy() for k, v in
-           tx.extract_batch(ref["imgs"], device="cpu").items()}
+    for mode, fields in MODES.items():
+        got = {k: v.numpy() for k, v in tx.extract_batch(
+            ref["imgs"], dataclasses.replace(CFG, **fields),
+            device="cpu").items()}
+        _check_extract(got, want, mode)
+
+
+def _check_extract(got, want, mode):
     assert got["n_candidates"].shape[1] == 7
     for k in ("n_candidates", "n_survivors", "n_emitted"):
-        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        np.testing.assert_array_equal(got[k], want[k], err_msg=f"{mode} {k}")
     for f in range(2):
         kt = got["kps"][f][got["valid"][f]]
         kj = want["kps"][f][want["valid"][f]]
-        assert len(kt) == len(kj) >= 100
+        assert len(kt) == len(kj) >= 100, mode
         # same emission order (octave-major scan order): row for row.
         # Fields within 1e-3 and >= 95% of descriptor rows byte-exact: the
         # parity bar of ARCHITECTURE.md "Parity strategy" layer 2 (the JAX
         # CPU path uses f64 atan2/exp under x64, the kernels f32)
-        np.testing.assert_allclose(kt, kj, rtol=0, atol=1e-3)
+        np.testing.assert_allclose(kt, kj, rtol=0, atol=1e-3, err_msg=mode)
         dt = got["desc"][f][got["valid"][f]]
         dj = want["desc"][f][want["valid"][f]]
-        assert (dt == dj).all(1).mean() >= 0.95
+        assert (dt == dj).all(1).mean() >= 0.95, mode
 
 
 def test_matcher_matches_jax():

@@ -279,3 +279,120 @@ def test_budget_single_split_on_card(dev):
     octs, dogs = tx.precompute(imgs, device=dev)
     sp = tx.extract_with_precomputed(octs, dogs, device=dev)
     assert torch.equal(sp["valid"].sum(1), full["valid"].sum(1))
+
+
+def _candidates(dev, k=512):
+    """Seed-octave candidates of the batched path, flattened over frames:
+    (dog_flat, s0, y0, x0, valid, plane_off, (h, w))."""
+    from sift_features_tpu_torch.ops.extrema import find_candidates_words
+    from sift_features_tpu_torch.ops.kernels.extrema import extrema_words
+
+    _, _, d, (h, w) = _octave0(dev)
+    b = CFG.image_border
+    words = extrema_words(d, (P + b, P + h - b, P + b, P + w - b), CFG)
+    s0, y0, x0, valid, _ = find_candidates_words(words, k)
+    B, n_dog = d.shape[:2]
+    poff = (torch.arange(B, device=dev, dtype=torch.int32)
+            * n_dog).repeat_interleave(k)
+    return (d.reshape(B * n_dog, *d.shape[2:]), s0.reshape(-1), y0.reshape(-1),
+            x0.reshape(-1), valid.reshape(-1), poff, (h, w))
+
+
+def test_k10_matches_k4_and_plain(dev):
+    from sift_features_tpu_torch.ops.kernels.refine import (
+        refine_step, refine_step_region)
+
+    flat, s0, y0, x0, valid, poff, _ = _candidates(dev)
+    p = torch.clamp(s0, 1, CFG.scales_per_octave) + poff
+    # a region with more candidates than a block has threads: 300 lanes on
+    # one 8 x 128 band
+    y = torch.cat([y0, torch.full((300,), 70, device=dev, dtype=y0.dtype)])
+    x = torch.cat([x0, (60 + torch.arange(300, device=dev) % 120).to(x0.dtype)])
+    p = torch.cat([p, torch.full((300,), 2, device=dev, dtype=p.dtype)])
+    act = torch.cat([valid, torch.ones(300, device=dev, dtype=torch.bool)])
+    k10 = refine_step_region(flat, p, y, x, act, CFG)
+    k10b = refine_step_region(flat, p, y, x, act, CFG)
+    k4 = refine_step(flat, p, y, x, act, CFG)
+    torch.cuda.synchronize()
+    plain = refine_step_region(flat.cpu(), p.cpu(), y.cpu(), x.cpu(), act.cpu(),
+                               CFG)
+    bits = lambda t: t.cpu().view(torch.int32)  # noqa: E731 (NaN-safe equality)
+    assert torch.equal(bits(k10), bits(k10b))
+    assert torch.equal(bits(k10), bits(k4))
+    assert torch.equal(bits(k10), bits(plain))
+
+
+def test_k11_matches_plain_and_k3(dev):
+    from sift_features_tpu_torch.ops.kernels.refine import (
+        refine_tile, refine_tile_plain, refine_tile_slots, refine_walk,
+        tile_layout)
+
+    flat, s0, y0, x0, valid, poff, (h, w) = _candidates(dev)
+    g = tile_layout(flat, s0, y0, x0, valid, P, CFG, poff)
+    slots = refine_tile_slots(flat, g, P, h, w, CFG)
+    slots2 = refine_tile_slots(flat, g, P, h, w, CFG)
+    torch.cuda.synchronize()
+    assert torch.equal(slots, slots2)
+    assert torch.equal(slots, refine_tile_plain(flat, g, P, h, w, CFG))
+    args = (flat, s0, y0, x0, valid, P, h, w, CFG)
+    assert torch.equal(refine_tile(*args, plane_off=poff),
+                       refine_walk(*args, plane_off=poff))
+
+
+def test_k8_matches_plain_and_k5(dev):
+    from sift_features_tpu_torch.ops.kernels.orientation import (
+        bucket_radii_ori, orientation_hist_peaks, orientation_hist_perkey)
+
+    c = _survivor_windows(dev)
+    count = torch.tensor(211, device=dev)
+    args = (c["gauss_flat"], c["plane"], c["y"], c["x"], c["kp_scale"], count,
+            c["h"], c["w"], P, bucket_radii_ori(CFG)[3], CFG)
+    h1 = orientation_hist_perkey(*args)
+    h2 = orientation_hist_perkey(*args)
+    live = torch.arange(c["plane"].numel(), device=dev) < count
+    k5 = orientation_hist_peaks(*args[:5], live, c["h"], c["w"], P, CFG)[0]
+    torch.cuda.synchronize()
+    plain = orientation_hist_perkey(*(a.cpu() if torch.is_tensor(a) else a
+                                      for a in args))
+    assert torch.equal(h1, h2) and torch.equal(h1, k5)
+    torch.testing.assert_close(h1.cpu(), plain, rtol=1e-6, atol=1e-7)
+    assert not h1[211:].any()
+
+
+def test_k7_matches_plain_and_k6(dev):
+    from sift_features_tpu_torch.ops.kernels.descriptor import (
+        bucket_radii, descriptor_hist, descriptor_hist_perkey)
+
+    c = _survivor_windows(dev)
+    count = torch.tensor(173, device=dev)
+    args = (c["gauss_flat"], c["plane"], c["x"], c["y"], c["kp_scale"],
+            c["angle"], count, c["h"], c["w"], P, bucket_radii(CFG)[3], CFG)
+    d1 = descriptor_hist_perkey(*args)
+    d2 = descriptor_hist_perkey(*args)
+    live = torch.arange(c["plane"].numel(), device=dev) < count
+    k6 = descriptor_hist(*args[:6], live, c["h"], c["w"], P, CFG)
+    torch.cuda.synchronize()
+    plain = descriptor_hist_perkey(*(a.cpu() if torch.is_tensor(a) else a
+                                     for a in args))
+    assert torch.equal(d1, d2) and torch.equal(d1, k6)
+    torch.testing.assert_close(d1.cpu(), plain, rtol=1e-6, atol=1e-7)
+    assert not d1[173:].any()
+
+
+def test_modes_on_card_equal_default(dev):
+    import dataclasses
+
+    from sift_features_tpu_torch.models import extractor as tx
+    from sift_features_tpu_torch.ops.kernels import build
+
+    imgs = smooth_images(1, 2, 96, 128)
+    want = tx.extract_batch(imgs, device=dev)
+    for kw, kernels in (({"refine_mode": "region"}, ("K10",)),
+                        ({"refine_mode": "tile"}, ("K11",)),
+                        ({"window_kernel": "perkey"}, ("K7", "K8"))):
+        build.reset_launches()
+        got = tx.extract_batch(imgs, dataclasses.replace(CFG, **kw), device=dev)
+        torch.cuda.synchronize()
+        assert all(build.LAUNCHES.get(k) for k in kernels), build.LAUNCHES
+        for key in want:
+            assert torch.equal(got[key], want[key]), (kw, key)

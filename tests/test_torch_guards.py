@@ -60,14 +60,21 @@ def test_wrappers_never_fall_back():
 
 
 def test_unported_paths_raise():
+    """The storage modes still raise naming ROADMAP; the ported refine and
+    window modes run."""
     import dataclasses
 
     img = np.zeros((1, 32, 32), np.uint8)
-    for field, value in (("window_kernel", "perkey"), ("refine_mode", "tile"),
-                         ("refine_mode", "region"),
-                         ("storage_dtype", "bfloat16")):
+    for field, value in (("storage_dtype", "bfloat16"),
+                         ("storage_dtype", "split"),
+                         ("gather_dtype", "bfloat16")):
         cfg = dataclasses.replace(CFG, **{field: value})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             extractor.extract_batch(img, cfg, features_limit=10, device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             extractor.precompute(img, cfg, device="cpu")
+    for field, value in (("window_kernel", "perkey"), ("refine_mode", "tile"),
+                         ("refine_mode", "region")):
+        octs, dogs = extractor.precompute(
+            img, dataclasses.replace(CFG, **{field: value}), device="cpu")
+        assert len(octs) == len(dogs) > 0
