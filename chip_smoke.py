@@ -39,7 +39,19 @@ Phases (any failure stops the script with a non-zero exit):
       against 5 default steps interleaved with them, a profile of one step,
       the tile walks that escaped; then the budget step once with perkey,
       byte-identical to the default budget output;
-  11. one JSON line with every kernel's numbers.
+  11. storage: storage_dtype "bfloat16" and "split" and gather_dtype
+      "bfloat16". Each new kernel form against its plain version at the
+      octave-0 inputs of its path (K1, K9, K2 and K4 forms bit-exact, the
+      window kernels on bf16 levels within 1e-4); the split and gather16 K1
+      against the f32 K1 bit for bit. Each mode's main step: its K1 form
+      launched (bf16: K4 and not K3), split and gather16 with the f32 step's
+      candidate and survivor counts and detection sets, bf16 with the share
+      of f32 keypoints it finds by position; the median of 5 steps against 5
+      default steps interleaved with them, peak memory; bf16 with perkey
+      (K8, K7 on bf16) equal to the bf16 step; the gather16 budget (K6′ on
+      bf16) equal to the truncated gather16 output; card against CPU on the
+      small image in each mode;
+  12. one JSON line with every kernel's numbers.
 The last line is {"ok": true, "device": {...}}.
 
 It needs one CUDA card and nvcc; without a card it exits with code 2 and
@@ -186,15 +198,27 @@ def bound(nbytes: float, ops: float):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def check_kernels(torch, cap, cfg, dev):
-    """Phase 3: every kernel against its plain version at octave 0."""
-    from sift_features_tpu_torch.ops.extrema import newton_step, refine
-    from sift_features_tpu_torch.ops.kernels import (
-        descriptor as k6, extrema as k2, orientation as k5, pyramid as k1,
-        refine as k34)
+def composed_kernels(torch, taps, dev):
+    """(levels, 1, 2r+1, 2r+1) f32 2-D kernels giving each Gaussian level of
+    an octave from its base in one convolution (the library yardstick of
+    K1), and r."""
+    comp, kern = np.ones(1), []
+    for t in taps:
+        comp = np.convolve(comp, t.astype(np.float64))
+        kern.append(comp)
+    r = len(kern[-1]) // 2
+    wgt = np.zeros((len(kern), 1, 2 * r + 1, 2 * r + 1), np.float32)
+    for i, c in enumerate(kern):
+        o = r - len(c) // 2
+        wgt[i, 0, o:o + len(c), o:o + len(c)] = np.outer(c, c)
+    wgt[wgt < 1e-20] = 0.0     # keep products clear of subnormals
+    return torch.from_numpy(wgt).to(dev), r
 
-    rows = {}
 
+def make_record(torch, rows):
+    """record(name, ...): holds a kernel's two launches against each other
+    and its plain version, prints its line, and keeps its numbers in
+    rows[name]; a disagreement stops the script."""
     def record(name, out_k, out_k2, out_p, exact, tol, ms, plain_ms, nbytes,
                ops, library_ms=None, note=""):
         outs = list(zip(out_k, out_k2, out_p))
@@ -213,11 +237,23 @@ def check_kernels(torch, cap, cfg, dev):
         rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": b_ms, "bound_by": b_by,
                       "library_ms": library_ms}
+    return record
+
+
+def check_kernels(torch, cap, cfg, dev):
+    """Phase 3: every kernel against its plain version at octave 0."""
+    from sift_features_tpu_torch.ops.extrema import newton_step, refine
+    from sift_features_tpu_torch.ops.kernels import (
+        descriptor as k6, extrema as k2, orientation as k5, pyramid as k1,
+        refine as k34)
+
+    rows = {}
+    record = make_record(torch, rows)
 
     # K1: octave 0 blur chain + DoG
     (base, _), _ = cap["K1"]
-    outs = [k1.octave_fused(base, cfg) for _ in range(2)]
-    plain = k1.octave_fused_plain(base, cfg)
+    outs = [k1.octave_fused(base, cfg)[:2] for _ in range(2)]
+    plain = k1.octave_fused_plain(base, cfg)[:2]
     nb, hp, wp = base.shape
     taps = k1.octave_taps(cfg)
     px = nb * hp * wp
@@ -227,17 +263,7 @@ def check_kernels(torch, cap, cfg, dev):
     plain_ms = time_ms(torch, lambda: k1.octave_fused_plain(base, cfg), 2)
     # yardstick: one cuDNN convolution giving all Gaussian levels from the
     # base, each level's taps composed into one 2D kernel (f32, TF32 off)
-    comp, kern = np.ones(1), []
-    for t in taps:
-        comp = np.convolve(comp, t.astype(np.float64))
-        kern.append(comp)
-    r = len(kern[-1]) // 2
-    wgt = np.zeros((len(kern), 1, 2 * r + 1, 2 * r + 1), np.float32)
-    for i, c in enumerate(kern):
-        o = r - len(c) // 2
-        wgt[i, 0, o:o + len(c), o:o + len(c)] = np.outer(c, c)
-    wgt[wgt < 1e-20] = 0.0     # keep products clear of subnormals
-    wgt = torch.from_numpy(wgt).to(dev)
+    wgt, r = composed_kernels(torch, taps, dev)
     torch.backends.cudnn.allow_tf32 = False
     conv = torch.nn.functional.conv2d
     lib_ms = time_ms(torch, lambda: conv(base[:, None], wgt, padding=r), 3)
@@ -818,6 +844,437 @@ def modes_phase(torch, extractor, match_dense, frames, res_full, cfg, dev):
     return out
 
 
+# storage mode -> (SiftConfig fields, kernels its main step must launch,
+# kernels it must not launch)
+STORAGE = {
+    "bfloat16": ({"storage_dtype": "bfloat16"},
+                 ("K1:bf16", "K2:bf16", "K4:bf16", "K5:bf16", "K6:bf16"),
+                 ("K1", "K2", "K3", "K4", "K5", "K6")),
+    "split": ({"storage_dtype": "split"},
+              ("K1:split", "K2", "K3", "K5:bf16", "K6:bf16"),
+              ("K1", "K4:bf16", "K5", "K6")),
+    "gather16": ({"gather_dtype": "bfloat16"},
+                 ("K1:g16", "K2", "K3", "K5:bf16", "K6:bf16"),
+                 ("K1", "K4:bf16", "K5", "K6"))}
+EXTRACTOR = "sift_features_tpu_torch.models.extractor"
+KMOD = "sift_features_tpu_torch.ops.kernels."
+
+
+def nbytes_of(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def check_storage_kernels(torch, extractor, frames, cfgs, cfg, dev, rows):
+    """Phase 11a: each kernel form of the storage modes against its plain
+    version at the octave-0 inputs of the path that runs it, and the split
+    and gather16 K1 against the f32 K1 bit for bit. Returns the K9 forms'
+    launches per build_octave_padded_batched call."""
+    import dataclasses
+
+    from sift_features_tpu_torch.ops.extrema import newton_step
+    from sift_features_tpu_torch.ops.kernels import (
+        build, descriptor as k6, extrema as k2, orientation as k5,
+        pyramid as k1, refine as k34)
+
+    record = make_record(torch, rows)
+    bf16 = torch.bfloat16
+    S = cfg.scales_per_octave
+    cap = capture_first_calls(torch, {
+        "K1": (EXTRACTOR, "octave_fused"), "K2": (EXTRACTOR, "extrema_words"),
+        "K4": (KMOD + "refine", "refine_step"),
+        "K5": (EXTRACTOR, "orientation_hist_peaks"),
+        "K6": (EXTRACTOR, "descriptor_hist")},
+        lambda: extractor.extract_batch(frames, cfgs["bfloat16"], device=dev))
+    cap_g = capture_first_calls(torch, {
+        "K1": (EXTRACTOR, "octave_fused"),
+        "K6′": (KMOD + "descriptor", "descriptor_hist_prefix")},
+        lambda: extractor.extract_batch(frames, cfgs["gather16"],
+                                        features_limit=BUDGET, device=dev))
+    cap_p = capture_first_calls(torch, {
+        "K8": (KMOD + "orientation", "orientation_hist_perkey"),
+        "K7": (KMOD + "descriptor", "descriptor_hist_perkey")},
+        lambda: extractor.extract_batch(
+            frames, dataclasses.replace(cfgs["bfloat16"], window_kernel="perkey"),
+            device=dev))
+    base16, base32 = cap["K1"][0][0], cap_g["K1"][0][0]
+    if base16.dtype != bf16 or base32.dtype != torch.float32:
+        raise SystemExit("chip_smoke: storage bases of the wrong type")
+
+    # K1 forms: bit-exact against the plain version; split and gather16
+    # against the f32 K1 on the same base, bit for bit
+    taps = k1.octave_taps(cfg)
+    px = base32.numel()
+    k1_ops = px * (sum(4 * len(t) for t in taps) + len(taps))
+    wgt, r = composed_kernels(torch, taps, dev)
+    conv = torch.nn.functional.conv2d
+    lib16 = time_ms(torch, lambda: conv(base16[:, None], wgt.to(bf16), padding=r), 2)
+    g32, d32, _, _ = k1.octave_fused(base32, cfg)
+    for name, base, kw in (("K1:bf16", base16, {}),
+                           ("K1:split", base32, {"split": True}),
+                           ("K1:g16", base32, {"gather16": True})):
+        res = [k1.octave_fused(base, cfg, **kw) for _ in range(2)]
+        plain = k1.octave_fused_plain(base, cfg, **kw)
+        keep = [i for i, t in enumerate(plain) if t is not None]
+        ms = time_ms(torch, lambda: k1.octave_fused(base, cfg, **kw), 10)
+        plain_ms = time_ms(torch, lambda: k1.octave_fused_plain(base, cfg, **kw), 2)
+        g, d, g16, l3 = res[0]
+        note = ""
+        if name == "K1:split":
+            if not (torch.equal(d, d32) and torch.equal(l3, g32[:, S - 1])
+                    and torch.equal(g, g32.to(bf16))):
+                raise SystemExit("chip_smoke: split K1 differs from the f32 K1")
+            note = "; DoG and l3 equal the f32 K1's, gauss its bf16 rounding"
+        if name == "K1:g16":
+            if not (torch.equal(g, g32) and torch.equal(d, d32)
+                    and torch.equal(g16, g32.to(bf16))):
+                raise SystemExit("chip_smoke: gather16 K1 differs from the f32 K1")
+            note = "; gauss and DoG equal the f32 K1's, g16 its bf16 rounding"
+        lib = lib16 if name == "K1:bf16" else rows["K1"]["library_ms"]
+        record(name, [res[0][i] for i in keep], [res[1][i] for i in keep],
+               [plain[i] for i in keep], True, 0.0, ms, plain_ms,
+               nbytes_of(base, *res[0]), k1_ops, lib,
+               f"{note}; library conv2d ({base.dtype}) {lib:.3f} ms")
+        del res, plain
+    del g32, d32
+
+    # K9 forms: build_octave_padded_batched, which no entry point calls;
+    # per level, as K9
+    n_lv = len(taps)
+    t0 = taps[0].astype(np.float64)
+    w1 = torch.from_numpy(np.outer(t0, t0).astype(np.float32)[None, None]).to(dev)
+    lib9 = time_ms(torch, lambda: conv(base16[:, None], w1.to(bf16),
+                                       padding=len(t0) // 2), 5)
+    k9_launches = {}
+    for name, base, kw in (("K9:bf16", base16, {}),
+                           ("K9:split", base32, {"split": True}),
+                           ("K9:g16", base32, {"gather16": True})):
+        build.reset_launches()
+        res = [k1.build_octave_padded_batched(base, cfg, **kw) for _ in range(2)]
+        k9_launches[name] = build.LAUNCHES.get(name, 0) // 2
+        plain = k1.build_octave_padded_batched_plain(base, cfg, **kw)
+        keep = [i for i, t in enumerate(plain) if t is not None]
+        ms = time_ms(torch, lambda: k1.build_octave_padded_batched(
+            base, cfg, **kw), 5) / n_lv
+        plain_ms = time_ms(torch, lambda: k1.build_octave_padded_batched_plain(
+            base, cfg, **kw), 2) / n_lv
+        g, d, g16 = res[0]
+        per_level = [base.element_size() if k == 0 else g.element_size() for k in
+                     range(n_lv)]
+        nbytes = px * (sum(per_level) + n_lv * (g.element_size() + d.element_size())
+                       + (2 * S if g16 is not None else 0)) / n_lv
+        lib = lib9 if name == "K9:bf16" else rows["K9"]["library_ms"]
+        record(name, [res[0][i] for i in keep], [res[1][i] for i in keep],
+               [plain[i] for i in keep], True, 0.0, ms, plain_ms, nbytes,
+               px * (sum(4 * len(t) for t in taps) + n_lv) / n_lv, lib,
+               f" (per level, {n_lv} levels, B={base.shape[0]}); library "
+               f"conv2d of level 1 ({base.dtype}) {lib:.3f} ms")
+        del res, plain
+
+    # K2 and K4 on the bf16 DoG: bit-exact
+    (dog, bounds, _), _ = cap["K2"]
+    outs = [k2.extrema_words(dog, bounds, cfg) for _ in range(2)]
+    plain = k2.extrema_words_plain(dog, bounds, cfg)
+    ms = time_ms(torch, lambda: k2.extrema_words(dog, bounds, cfg), 10)
+    plain_ms = time_ms(torch, lambda: k2.extrema_words_plain(dog, bounds, cfg), 2)
+    record("K2:bf16", [outs[0]], [outs[1]], [plain], True, 0.0, ms, plain_ms,
+           nbytes_of(dog, outs[0]), dog.numel() // 5 * 3 * 27)
+    args, _ = cap["K4"]
+    dog_flat, p, y, x, active = args[:5]
+    n_act = int(active.sum())
+    outs = [k34.refine_step(*args) for _ in range(2)]
+    plain = newton_step(*args)
+    ms = time_ms(torch, lambda: k34.refine_step(*args), 10)
+    plain_ms = time_ms(torch, lambda: newton_step(*args), 2)
+    record("K4:bf16", [nan_safe(torch, outs[0])], [nan_safe(torch, outs[1])],
+           [nan_safe(torch, plain)], True, 0.0, ms, plain_ms,
+           p.numel() * (4 * 4 + 16 * 4) + 27 * 2 * n_act, 150 * n_act,
+           note=f" (first Newton step at octave 0: {n_act} active of "
+                f"{p.numel()} lanes)")
+    del outs, plain
+
+    # the window kernels on bf16 Gaussian levels: within 1e-4 of the plain
+    # versions, two launches identical
+    radius_factor = cfg.lambda_descr * np.sqrt(2.0) * (cfg.descriptor_n_histograms + 1) / 2
+    args, kw = cap["K5"]
+    outs = [k5.orientation_hist_peaks(*args, **kw) for _ in range(2)]
+    plain = k5.orientation_plain(*args, **kw)
+    n_live, wpx, smp = window_samples(torch, args[4], args[5],
+                                      3.0 * cfg.lambda_ori, 16)
+    ms = time_ms(torch, lambda: k5.orientation_hist_peaks(*args, **kw), 10)
+    plain_ms = time_ms(torch, lambda: k5.orientation_plain(*args, **kw), 1, 0)
+    record("K5:bf16", outs[0], outs[1], plain, False, 1e-4, ms, plain_ms,
+           2 * wpx + args[5].numel() * (5 * 4 + 41 * 4), 60 * smp,
+           note=f"; {n_live} live of {args[5].numel()} lanes")
+    args, kw = cap["K6"]
+    outs = [k6.descriptor_hist(*args, **kw) for _ in range(2)]
+    plain = k6.descriptor_plain(*args, **kw)
+    n_live, wpx, smp = window_samples(torch, args[4], args[6], radius_factor, 39)
+    ms = time_ms(torch, lambda: k6.descriptor_hist(*args, **kw), 5)
+    plain_ms = time_ms(torch, lambda: k6.descriptor_plain(*args, **kw), 1, 0)
+    record("K6:bf16", [outs[0]], [outs[1]], [plain], False, 1e-4, ms, plain_ms,
+           2 * wpx + args[6].numel() * (6 * 4 + 128 * 4), 100 * smp,
+           note=f"; {n_live} live of {args[6].numel()} lanes")
+    args, kw = cap_g["K6′"]
+    outs = [k6.descriptor_hist_prefix(*args, **kw) for _ in range(2)]
+    live = torch.arange(args[4].numel(), device=dev) < args[6]
+    plain = k6.descriptor_plain(*args[:6], live, *args[7:], **kw)
+    n_live, wpx, smp = window_samples(torch, args[4], live, radius_factor, 39)
+    ms = time_ms(torch, lambda: k6.descriptor_hist_prefix(*args, **kw), 5)
+    plain_ms = time_ms(torch, lambda: k6.descriptor_plain(
+        *args[:6], live, *args[7:], **kw), 1, 0)
+    record("K6′:bf16", [outs[0]], [outs[1]], [plain], False, 1e-4, ms, plain_ms,
+           2 * wpx + live.numel() * (5 * 4 + 128 * 4) + 4, 100 * smp,
+           note=f" (gather16 budget, octave 0); count {n_live} of "
+                f"{live.numel()} lanes")
+    args, _ = cap_p["K8"]
+    live = torch.arange(args[1].numel(), device=dev) < args[5]
+    outs = [k5.orientation_hist_perkey(*args) for _ in range(2)]
+    plain = k5.orientation_raw_plain(*args[:5], live, *args[6:9], cfg, args[9])
+    n_live, wpx, smp = window_samples(torch, args[4], live, 3.0 * cfg.lambda_ori,
+                                      args[9])
+    ms = time_ms(torch, lambda: k5.orientation_hist_perkey(*args), 10)
+    plain_ms = time_ms(torch, lambda: k5.orientation_raw_plain(
+        *args[:5], live, *args[6:9], cfg, args[9]), 1, 0)
+    record("K8:bf16", [outs[0]], [outs[1]], [plain], False, 1e-4, ms, plain_ms,
+           2 * wpx + live.numel() * (4 * 4 + 36 * 4) + 4, 60 * smp,
+           note=f" (perkey, octave 0, scale bucket 1 of 3, r_max {args[9]}); "
+                f"count {n_live} of {live.numel()} lanes")
+    args, _ = cap_p["K7"]
+    live = torch.arange(args[1].numel(), device=dev) < args[6]
+    outs = [k6.descriptor_hist_perkey(*args) for _ in range(2)]
+    plain = k6.descriptor_plain(*args[:6], live, *args[7:10], cfg, r_max=args[10])
+    n_live, wpx, smp = window_samples(torch, args[4], live, radius_factor, args[10])
+    ms = time_ms(torch, lambda: k6.descriptor_hist_perkey(*args), 5)
+    plain_ms = time_ms(torch, lambda: k6.descriptor_plain(
+        *args[:6], live, *args[7:10], cfg, r_max=args[10]), 1, 0)
+    record("K7:bf16", [outs[0]], [outs[1]], [plain], False, 1e-4, ms, plain_ms,
+           2 * wpx + live.numel() * (5 * 4 + 128 * 4) + 4, 100 * smp,
+           note=f" (perkey, octave 0, scale bucket 1 of 3, r_max {args[10]}); "
+                f"count {n_live} of {live.numel()} lanes")
+    return k9_launches
+
+
+def detection_set(res, f: int) -> set:
+    """Frame f's detected (x, y, size, response) rows as bytes: what the
+    split mode keeps equal to the f32 run (orientation emission may repeat
+    a row another number of times, since the windows read bf16)."""
+    kps = res["kps"][f][res["valid"][f]][:, [0, 1, 2, 4]].cpu().numpy()
+    return {row.tobytes() for row in kps}
+
+
+def matched_share(kps_a: np.ndarray, kps_b: np.ndarray, tol: float) -> float:
+    """Share of the rows of kps_a matched greedily to a row of kps_b whose
+    |dx| + |dy| + |dsize| is below tol (tools/check_modes.py:compare, which
+    takes tol = 1e-3)."""
+    used = np.zeros(len(kps_b), bool)
+    n = 0
+    for row in kps_a:
+        d = np.abs(kps_b[:, :3] - row[:3]).sum(1) + np.where(used, 1e9, 0)
+        j = int(np.argmin(d)) if len(d) else -1
+        if j >= 0 and d[j] < tol:
+            used[j] = True
+            n += 1
+    return n / max(len(kps_a), 1)
+
+
+STAGES = ("create_seed_image", "octave_fused", "_detect_octave_batched",
+          "_tiny_octave")
+
+
+def stage_peaks(torch, extractor, run) -> dict:
+    """Peak device memory (GB, everything allocated) during each stage of
+    extract_batch in one run(), the peak statistics reset as each stage
+    starts."""
+    peaks = {}
+    saved = {n: getattr(extractor, n) for n in STAGES}
+
+    def wrap(name, fn):
+        def staged(*a, **k):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            peaks[name] = max(peaks.get(name, 0.0),
+                              torch.cuda.max_memory_allocated() / 1e9)
+            return out
+        return staged
+    for name, fn in saved.items():
+        setattr(extractor, name, wrap(name, fn))
+    try:
+        run()
+    finally:
+        for name, fn in saved.items():
+            setattr(extractor, name, fn)
+    return peaks
+
+
+def storage_phase(torch, extractor, match_dense, frames, res_full, cfg, dev,
+                  rows):
+    """Phase 11: the storage modes on the main step (B=4 1080p)."""
+    import dataclasses
+
+    from sift_features_tpu_torch.ops.kernels import build
+
+    cfgs = {m: dataclasses.replace(cfg, **f) for m, (f, _, _) in STORAGE.items()}
+    k9_launches = check_storage_kernels(torch, extractor, frames, cfgs, cfg, dev,
+                                        rows)
+    torch.cuda.empty_cache()
+
+    def step(c):
+        return main_path_step(torch, extractor.extract_batch, match_dense,
+                              frames, c, dev)
+
+    step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(cfg)
+    torch.cuda.synchronize()
+    out = {"default_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "default_stage_peak_gb": stage_peaks(torch, extractor,
+                                                lambda: step(cfg)),
+           "k9_launches_per_call": k9_launches}
+    results = {}
+    for mode, (_, need, never) in STORAGE.items():
+        mcfg = cfgs[mode]
+        step(mcfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        res, _, matches = step(mcfg)
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if not all(launches.get(k) for k in need) or any(
+                launches.get(k) for k in never):
+            raise SystemExit(f"chip_smoke: {mode} storage must launch {need} "
+                             f"and not {never}: {launches}")
+        kps_frame = res["valid"].sum(1).tolist()
+        if not np.isfinite(res["kps"][res["valid"]].cpu().numpy()).all():
+            raise SystemExit(f"chip_smoke: {mode}: non-finite keypoints")
+        n_kept = [int(m[2].sum()) for m in matches]
+        if min(kps_frame) < N_MATCH or min(n_kept) < 1:
+            raise SystemExit(f"chip_smoke: {mode}: {kps_frame} keypoints, "
+                             f"{n_kept} matches kept")
+        row = {"launches": launches, "kps_per_frame": kps_frame,
+               "peak_mem_gb": peak_gb, "matches_kept": n_kept,
+               "stage_peak_gb": stage_peaks(torch, extractor,
+                                            lambda: step(mcfg))}
+        if mode == "bfloat16":
+            # the f32 keypoints this mode finds again by position: to 1e-3
+            # px as tools/check_modes.py, and to half a pixel
+            share = {tol: [matched_share(
+                res_full["kps"][f][res_full["valid"][f]].cpu().numpy(),
+                res["kps"][f][res["valid"][f]].cpu().numpy(), tol)
+                for f in range(B)] for tol in (1e-3, 0.5)}
+            row["f32_kps_matched_by_position"] = {str(t): v for t, v in share.items()}
+            note = "; ".join(f"f32 keypoints matched within {t:g} px "
+                             f"{[round(v, 4) for v in vs]}"
+                             for t, vs in share.items())
+            note += f" (f32 kps/frame {res_full['valid'].sum(1).tolist()})"
+        else:
+            for key in ("n_candidates", "n_survivors"):
+                if not torch.equal(res[key], res_full[key]):
+                    raise SystemExit(f"chip_smoke: {mode}: {key} differs from "
+                                     f"the f32 step")
+            for f in range(B):
+                if detection_set(res, f) != detection_set(res_full, f):
+                    raise SystemExit(f"chip_smoke: {mode}: frame {f}'s "
+                                     f"detection set differs from the f32 step")
+            note = ("n_candidates, n_survivors and every frame's (x, y, size, "
+                    "response) set equal to the f32 step's")
+        # 5 steps of the mode, each after one default step
+        step_s, base_s = [], []
+        for _ in range(5):
+            for c, acc in ((cfg, base_s), (mcfg, step_s)):
+                t0 = time.perf_counter()
+                step(c)
+                torch.cuda.synchronize()
+                acc.append(time.perf_counter() - t0)
+        row.update({"median_step_ms": statistics.median(step_s) * 1e3,
+                    "step_ms": [t * 1e3 for t in step_s],
+                    "default_median_step_ms_interleaved":
+                        statistics.median(base_s) * 1e3,
+                    "default_step_ms_interleaved": [t * 1e3 for t in base_s]})
+        print(f"[storage] {mode}: {note}; kps/frame {kps_frame}; median "
+              f"{row['median_step_ms']:.1f} ms of 5 steps against "
+              f"{row['default_median_step_ms_interleaved']:.1f} ms for the "
+              f"default steps between them; peak {peak_gb:.3f} GB (default "
+              f"{out['default_peak_mem_gb']:.3f} GB), by stage "
+              f"{ {k: round(v, 3) for k, v in row['stage_peak_gb'].items()} } "
+              f"(default {out['default_stage_peak_gb']}); launches {launches}",
+              flush=True)
+        out[mode] = row
+        results[mode] = res
+        del matches
+
+    # bf16 storage with window_kernel="perkey": K8 and K7 on bf16 levels,
+    # byte-identical to the packed bf16 step
+    build.reset_launches()
+    rp = extractor.extract_batch(frames, dataclasses.replace(
+        cfgs["bfloat16"], window_kernel="perkey"), device=dev)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    if not launches.get("K8:bf16") or not launches.get("K7:bf16") or any(
+            launches.get(k) for k in ("K5:bf16", "K6:bf16", "K8", "K7")):
+        raise SystemExit(f"chip_smoke: bf16 perkey must launch K8:bf16 and "
+                         f"K7:bf16 only: {launches}")
+    for key in rp:
+        if not torch.equal(rp[key], results["bfloat16"][key]):
+            raise SystemExit(f"chip_smoke: bf16 perkey differs from the bf16 "
+                             f"step in {key}")
+    out["bfloat16_perkey"] = {"launches": launches}
+    print(f"[storage] bfloat16 + perkey: byte-identical to the bfloat16 step; "
+          f"launches {launches}", flush=True)
+
+    # the gather16 budget step: K6′ on the bf16 copy
+    extractor.extract_batch(frames, cfgs["gather16"], features_limit=BUDGET,
+                            device=dev)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    rb = extractor.extract_batch(frames, cfgs["gather16"], features_limit=BUDGET,
+                                 device=dev)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    if not launches.get("K6′:bf16") or any(
+            launches.get(k) for k in ("K6", "K6:bf16", "K6′")):
+        raise SystemExit(f"chip_smoke: gather16 budget must launch K6′:bf16 "
+                         f"and not K6 / K6′: {launches}")
+    want = extractor._truncate_result(results["gather16"], BUDGET)
+    for key in want:
+        if not torch.equal(rb[key], want[key]):
+            raise SystemExit(f"chip_smoke: gather16 budget differs from the "
+                             f"truncated gather16 output in {key}")
+    out["gather16_budget"] = {"launches": launches}
+    print(f"[storage] gather16 budget: byte-identical to _truncate_result of "
+          f"the gather16 output; launches {launches}", flush=True)
+    del results, rp, rb, want
+    torch.cuda.empty_cache()
+
+    # card against CPU on the small image, phase 8's bar
+    img = small_image(torch)[None]
+    for mode, mcfg in cfgs.items():
+        rc = extractor.extract_batch(img, mcfg, device=dev)
+        rh = extractor.extract_batch(img, mcfg, device="cpu")
+        for key in ("n_candidates", "n_survivors", "n_emitted", "valid"):
+            if not torch.equal(rc[key].cpu(), rh[key]):
+                raise SystemExit(f"chip_smoke: {mode}: card and CPU differ in "
+                                 f"{key}")
+        v = rh["valid"]
+        kp_err = float((rc["kps"].cpu()[v] - rh["kps"][v]).abs().max())
+        rows_eq = float((rc["desc"].cpu()[v] == rh["desc"][v]).all(1).float().mean())
+        print(f"[storage] {mode} card-vs-cpu {SMALL[0]}x{SMALL[1]}: "
+              f"{int(v.sum())} keypoints, identical sets, max field diff "
+              f"{kp_err:.3g}, descriptor rows byte-equal {rows_eq:.4f}",
+              flush=True)
+        if int(v.sum()) < 50 or kp_err > 1e-3 or rows_eq < 0.99:
+            raise SystemExit(f"chip_smoke: {mode}: card and CPU disagree")
+        out[mode]["card_vs_cpu"] = {"keypoints": int(v.sum()),
+                                    "max_field_diff": kp_err,
+                                    "desc_rows_equal": rows_eq}
+    print(json.dumps({"storage": out}, ensure_ascii=False), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -996,10 +1453,15 @@ def main() -> int:
     # 10. the other modes at B=4 1080p
     modes = modes_phase(torch, extractor, match_dense, frames, res_full, cfg,
                         dev)
+    torch.cuda.empty_cache()
+
+    # 11. the storage modes at B=4 1080p
+    storage = storage_phase(torch, extractor, match_dense, frames, res_full,
+                            cfg, dev, rows)
     del res_full
     torch.cuda.empty_cache()
 
-    # 11. the kernels line
+    # 12. the kernels line
     paths = {"K4": ("refine_mode=step, 240x320", step_launches),
              "K6′": (f"budget, features_limit={BUDGET}", budget_row["launches"]),
              "K10": ("refine_mode=region main step", modes["region"]["launches"]),
@@ -1008,6 +1470,21 @@ def main() -> int:
         paths[k] = ("window_kernel=perkey main step", modes["perkey"]["launches"])
     for k in ("K9", "K2′", "K5′"):
         paths[k] = ("per-frame _extract_single, 1080p frame 0", single_launches)
+    for k in ("K1:bf16", "K2:bf16", "K4:bf16", "K5:bf16", "K6:bf16"):
+        paths[k] = ("storage_dtype=bfloat16 main step",
+                    storage["bfloat16"]["launches"])
+    paths["K1:split"] = ("storage_dtype=split main step",
+                         storage["split"]["launches"])
+    paths["K1:g16"] = ("gather_dtype=bfloat16 main step",
+                       storage["gather16"]["launches"])
+    paths["K6′:bf16"] = (f"gather_dtype=bfloat16 budget, features_limit={BUDGET}",
+                         storage["gather16_budget"]["launches"])
+    for k in ("K7:bf16", "K8:bf16"):
+        paths[k] = ("storage_dtype=bfloat16 window_kernel=perkey main step",
+                    storage["bfloat16_perkey"]["launches"])
+    for k, n in storage["k9_launches_per_call"].items():
+        paths[k] = ("kernel phase only: one build_octave_padded_batched call "
+                    "(no entry point reaches it)", {k: n})
     kernels = []
     for k, (src, replaces) in KERNELS.items():
         path, counts = paths.get(k, ("main path", launches))

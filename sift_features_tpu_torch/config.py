@@ -52,7 +52,14 @@ class SiftConfig:
     # Kept for field parity with the JAX config; the port dispatches by the
     # tensors' device, not by this flag.
     use_pallas: bool = True
-    # Only "float32" is ported (ROADMAP.md Queue A).
+    # Pyramid storage of the frame-batched path (extract_batch, extract,
+    # sift): storage_dtype "float32", "bfloat16" (bf16 seed, Gaussian
+    # levels and DoG; K4 refines) or "split" (bf16 Gaussian levels, f32
+    # DoG bit-equal to the f32 run's); gather_dtype "bfloat16" adds a bf16
+    # copy of the Gaussian levels for the window kernels when storage is
+    # f32. Blur arithmetic is f32 in every mode. The per-frame path and
+    # precompute / extract_with_precomputed ignore both, as the JAX
+    # package's do.
     gather_dtype: str = "float32"
     storage_dtype: str = "float32"
     # "walk" (whole <=5-step loop in one kernel launch, K3), "step" (one
@@ -68,6 +75,17 @@ class SiftConfig:
     @property
     def descriptor_size(self) -> int:
         return self.descriptor_n_histograms ** 2 * self.descriptor_n_bins
+
+    @property
+    def gather16(self) -> bool:
+        """K1 writes a bf16 window copy of the Gaussian levels
+        (models/extractor.py:498-499 of the JAX package)."""
+        return self.gather_dtype == "bfloat16" and self.storage_dtype == "float32"
+
+    @property
+    def split(self) -> bool:
+        """bf16 Gaussian levels, f32 DoG and an f32 next-octave base."""
+        return self.storage_dtype == "split"
 
     @property
     def n_scale_images(self) -> int:
@@ -129,11 +147,11 @@ def config_from_reference(d: dict) -> SiftConfig:
 
 
 def check_supported(cfg: SiftConfig) -> None:
-    """Raise for the options this slice of the port does not implement."""
-    if cfg.storage_dtype != "float32" or cfg.gather_dtype != "float32":
-        raise NotImplementedError(
-            "storage_dtype/gather_dtype other than 'float32' are not ported "
-            "yet (ROADMAP.md Queue A)")
+    """Raise ValueError for an unknown mode name."""
+    if cfg.storage_dtype not in ("float32", "bfloat16", "split"):
+        raise ValueError(f"unknown storage_dtype {cfg.storage_dtype!r}")
+    if cfg.gather_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown gather_dtype {cfg.gather_dtype!r}")
     if cfg.refine_mode not in ("walk", "step", "region", "tile"):
         raise ValueError(f"unknown refine_mode {cfg.refine_mode!r}")
     if cfg.window_kernel not in ("packed", "perkey"):

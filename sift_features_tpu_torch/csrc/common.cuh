@@ -7,10 +7,30 @@
 // Constants are hex literals of the f32 values the Python side uses
 // (np.float32 of the same decimals), so no literal rounds differently.
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define SIFT_EXPORT extern "C" __attribute__((visibility("default")))
+
+// Storage types of the pyramid planes: f32, or bf16 in the storage modes
+// (SiftConfig.storage_dtype / gather_dtype). A kernel reads either and
+// computes in f32: the bf16 -> f32 widening is exact, and a store rounds
+// f32 -> bf16 to nearest even, as XLA's convert and torch's .to() do.
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// dtype codes of the C entries (ops/kernels/build.py:DTYPE_CODE)
+#define SIFT_F32 0
+#define SIFT_BF16 1
 
 __device__ __forceinline__ float round_half_away(float x) {
   // Rust f32::round: floor(x + 0.5), fixed where x + 0.5 is integral and x < 0

@@ -33,6 +33,10 @@
 // exiting at once, keeps the design simple. The row-per-thread split leaves
 // threads idle for small radii; a later version can give several threads to
 // a row and merge their partial rows in a fixed order.
+//
+// The Gaussian planes may be f32 or bf16 (the storage modes): K6 and K7 are
+// templates on the plane type and widen each sample to f32 at the load
+// (K7 as it stages its window), which is exact.
 #include "common.cuh"
 
 #include <assert.h>
@@ -77,7 +81,8 @@ __device__ __forceinline__ int descriptor_lane(float scale, float angle,
 // samples inside the image interior and the rotated 4x4 grid. g points at
 // the sample of row y + dy, column x, in a plane of row stride `stride`
 // (the Gaussian level in device memory for K6, the staged window for K7).
-__device__ __forceinline__ void descriptor_row(const float* g, int stride, int dy, int ri,
+template <typename T>
+__device__ __forceinline__ void descriptor_row(const T* g, int stride, int dy, int ri,
                                                int x, int w, float sin_s, float cos_s,
                                                float orientation, const DescParams& prm,
                                                float* acc) {
@@ -97,8 +102,8 @@ __device__ __forceinline__ void descriptor_row(const float* g, int stride, int d
       continue;
     float w2 = col_rot * col_rot + row_rot * row_rot;
     float weight = exp_f32_via_f64(w2 * prm.wscale);
-    float gx = g[dx + 1] - g[dx - 1];
-    float gy = g[dx - stride] - g[dx + stride];
+    float gx = to_f32(g[dx + 1]) - to_f32(g[dx - 1]);
+    float gy = to_f32(g[dx - stride]) - to_f32(g[dx + stride]);
     float mag = sqrtf(gx * gx + gy * gy);
     float deg = atan2_f32(gy, gx) * prm.rad2deg;
     float ori_norm = py_mod(deg + 360.0f, 360.0f) - orientation;
@@ -134,8 +139,9 @@ __device__ __forceinline__ void descriptor_row(const float* g, int stride, int d
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(DESC_THREADS) descriptor_kernel(
-    const float* __restrict__ gauss, int Hp, int Wp, const int* __restrict__ plane,
+    const T* __restrict__ gauss, int Hp, int Wp, const int* __restrict__ plane,
     const int* __restrict__ ys, const int* __restrict__ xs,
     const float* __restrict__ scales, const float* __restrict__ angles,
     const int* __restrict__ live, const int* __restrict__ count,
@@ -172,26 +178,35 @@ __global__ void __launch_bounds__(DESC_THREADS) descriptor_kernel(
   }
 }
 
-static int launch_descriptor(const float* gauss, int Hp, int Wp, const int* plane,
-                             const int* y, const int* x, const float* scale,
-                             const float* angle, const int* live, const int* count,
-                             float* hist, int M, int h, int w, int pad, int r_max,
-                             DescParams prm, cudaStream_t stream) {
+static int launch_descriptor(const void* gauss, int gauss_t, int Hp, int Wp,
+                             const int* plane, const int* y, const int* x,
+                             const float* scale, const float* angle, const int* live,
+                             const int* count, float* hist, int M, int h, int w, int pad,
+                             int r_max, DescParams prm, cudaStream_t stream) {
   int D = prm.n_hist * prm.n_hist * prm.n_bins;
-  if (D > MAX_D || 2 * r_max + 1 > DESC_THREADS) return (int)cudaErrorInvalidValue;
+  if (D > MAX_D || 2 * r_max + 1 > DESC_THREADS ||
+      (gauss_t != SIFT_F32 && gauss_t != SIFT_BF16))
+    return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;
   size_t smem = (size_t)(2 * r_max + 1) * (D + 1) * sizeof(float);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  descriptor_kernel<<<M, DESC_THREADS, smem, stream>>>(gauss, Hp, Wp, plane, y, x, scale,
-                                                       angle, live, count, hist, h, w,
-                                                       pad, r_max, prm);
+  if (gauss_t == SIFT_BF16)
+    descriptor_kernel<bf16><<<M, DESC_THREADS, smem, stream>>>(
+        (const bf16*)gauss, Hp, Wp, plane, y, x, scale, angle, live, count, hist, h, w,
+        pad, r_max, prm);
+  else
+    descriptor_kernel<float><<<M, DESC_THREADS, smem, stream>>>(
+        (const float*)gauss, Hp, Wp, plane, y, x, scale, angle, live, count, hist, h, w,
+        pad, r_max, prm);
   return (int)cudaGetLastError();
 }
 
-// gauss (n_planes, Hp, Wp) f32; plane/y/x/live (M,) int32 ((y, x) unpadded
-// octave coordinates, the rounded keypoint position); scale/angle (M,) f32
-// -> hist (M, n_hist^2 n_bins) raw f32, zero on dead lanes.
-SIFT_EXPORT int sift_descriptor(const float* gauss, int Hp, int Wp, const int* plane,
+// gauss (n_planes, Hp, Wp) of type gauss_t (f32 or bf16); plane/y/x/live
+// (M,) int32 ((y, x) unpadded octave coordinates, the rounded keypoint
+// position); scale/angle (M,) f32 -> hist (M, n_hist^2 n_bins) raw f32, zero
+// on dead lanes.
+SIFT_EXPORT int sift_descriptor(const void* gauss, int gauss_t, int Hp, int Wp,
+                                const int* plane,
                                 const int* y, const int* x, const float* scale,
                                 const float* angle, const int* live, float* hist,
                                 int M, int h, int w, int pad, int r_max, int n_hist,
@@ -199,13 +214,13 @@ SIFT_EXPORT int sift_descriptor(const float* gauss, int Hp, int Wp, const int* p
                                 float deg2rad, float rad2deg, float bin_step,
                                 float wscale, cudaStream_t stream) {
   DescParams prm{n_hist, n_bins, lambda_descr, sqrt2, deg2rad, rad2deg, bin_step, wscale};
-  return launch_descriptor(gauss, Hp, Wp, plane, y, x, scale, angle, live, nullptr, hist,
-                           M, h, w, pad, r_max, prm, stream);
+  return launch_descriptor(gauss, gauss_t, Hp, Wp, plane, y, x, scale, angle, live,
+                           nullptr, hist, M, h, w, pad, r_max, prm, stream);
 }
 
 // K6': the same with lane i live iff i < *count (count: one int32 on the
 // device).
-SIFT_EXPORT int sift_descriptor_prefix(const float* gauss, int Hp, int Wp,
+SIFT_EXPORT int sift_descriptor_prefix(const void* gauss, int gauss_t, int Hp, int Wp,
                                        const int* plane, const int* y, const int* x,
                                        const float* scale, const float* angle,
                                        const int* count, float* hist, int M, int h,
@@ -214,8 +229,8 @@ SIFT_EXPORT int sift_descriptor_prefix(const float* gauss, int Hp, int Wp,
                                        float deg2rad, float rad2deg, float bin_step,
                                        float wscale, cudaStream_t stream) {
   DescParams prm{n_hist, n_bins, lambda_descr, sqrt2, deg2rad, rad2deg, bin_step, wscale};
-  return launch_descriptor(gauss, Hp, Wp, plane, y, x, scale, angle, nullptr, count,
-                           hist, M, h, w, pad, r_max, prm, stream);
+  return launch_descriptor(gauss, gauss_t, Hp, Wp, plane, y, x, scale, angle, nullptr,
+                           count, hist, M, h, w, pad, r_max, prm, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -233,8 +248,9 @@ SIFT_EXPORT int sift_descriptor_prefix(const float* gauss, int Hp, int Wp,
 // block takes up to 26 KB + 77 x 129 f32 = 65 KB of dynamic shared memory.
 //
 // Bound on the H100: as K6, the operations of the per-sample math.
+template <typename T>
 __global__ void __launch_bounds__(DESC_THREADS) descriptor_perkey_kernel(
-    const float* __restrict__ gauss, int Hp, int Wp, const int* __restrict__ plane,
+    const T* __restrict__ gauss, int Hp, int Wp, const int* __restrict__ plane,
     const int* __restrict__ ys, const int* __restrict__ xs,
     const float* __restrict__ scales, const float* __restrict__ angles,
     const int* __restrict__ count, float* __restrict__ hist, int h, int w, int pad,
@@ -256,9 +272,10 @@ __global__ void __launch_bounds__(DESC_THREADS) descriptor_perkey_kernel(
   int ri = descriptor_lane(scales[k], angles[k], prm, r_max, &orientation, &sin_s, &cos_s);
   int n = 2 * ri + 1;
   int y = ys[k], x = xs[k];
-  const float* g0 = gauss + (long long)plane[k] * Hp * Wp +
-                    (long long)(y + pad - r_max - 1) * Wp + (x + pad - r_max - 1);
-  for (int i = t; i < wn * wn; i += blockDim.x) win[i] = g0[(i / wn) * Wp + i % wn];
+  const T* g0 = gauss + (long long)plane[k] * Hp * Wp +
+                (long long)(y + pad - r_max - 1) * Wp + (x + pad - r_max - 1);
+  for (int i = t; i < wn * wn; i += blockDim.x)
+    win[i] = to_f32(g0[(i / wn) * Wp + i % wn]);
   for (int i = t; i < n * stride; i += blockDim.x) rows[i] = 0.0f;
   __syncthreads();
   if (t < n) {
@@ -276,11 +293,11 @@ __global__ void __launch_bounds__(DESC_THREADS) descriptor_perkey_kernel(
   }
 }
 
-// gauss (n_planes, Hp, Wp) f32; plane/y/x (M,) int32 ((y, x) unpadded
-// octave coordinates, pad >= r_max + 1); scale/angle (M,) f32; count: one
-// int32 on the device -> hist (M, n_hist^2 n_bins) raw f32, zero for lanes
-// >= count.
-SIFT_EXPORT int sift_descriptor_perkey(const float* gauss, int Hp, int Wp,
+// gauss (n_planes, Hp, Wp) of type gauss_t (f32 or bf16); plane/y/x (M,)
+// int32 ((y, x) unpadded octave coordinates, pad >= r_max + 1); scale/angle
+// (M,) f32; count: one int32 on the device -> hist (M, n_hist^2 n_bins) raw
+// f32, zero for lanes >= count.
+SIFT_EXPORT int sift_descriptor_perkey(const void* gauss, int gauss_t, int Hp, int Wp,
                                        const int* plane, const int* y, const int* x,
                                        const float* scale, const float* angle,
                                        const int* count, float* hist, int M, int h, int w,
@@ -290,15 +307,27 @@ SIFT_EXPORT int sift_descriptor_perkey(const float* gauss, int Hp, int Wp,
                                        cudaStream_t stream) {
   DescParams prm{n_hist, n_bins, lambda_descr, sqrt2, deg2rad, rad2deg, bin_step, wscale};
   int D = n_hist * n_hist * n_bins;
-  if (D > MAX_D || 2 * r_max + 1 > DESC_THREADS || pad < r_max + 1)
+  if (D > MAX_D || 2 * r_max + 1 > DESC_THREADS || pad < r_max + 1 ||
+      (gauss_t != SIFT_F32 && gauss_t != SIFT_BF16))
     return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;
   size_t smem = ((size_t)(2 * r_max + 3) * (2 * r_max + 3) +
                  (size_t)(2 * r_max + 1) * (D + 1)) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      descriptor_perkey_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  descriptor_perkey_kernel<<<M, DESC_THREADS, smem, stream>>>(
-      gauss, Hp, Wp, plane, y, x, scale, angle, count, hist, h, w, pad, r_max, prm);
+  cudaError_t e;
+  if (gauss_t == SIFT_BF16) {
+    e = cudaFuncSetAttribute(descriptor_perkey_kernel<bf16>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    descriptor_perkey_kernel<bf16><<<M, DESC_THREADS, smem, stream>>>(
+        (const bf16*)gauss, Hp, Wp, plane, y, x, scale, angle, count, hist, h, w, pad,
+        r_max, prm);
+  } else {
+    e = cudaFuncSetAttribute(descriptor_perkey_kernel<float>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    descriptor_perkey_kernel<float><<<M, DESC_THREADS, smem, stream>>>(
+        (const float*)gauss, Hp, Wp, plane, y, x, scale, angle, count, hist, h, w, pad,
+        r_max, prm);
+  }
   return (int)cudaGetLastError();
 }

@@ -13,10 +13,13 @@
 // the 27 reads of neighbouring threads overlap in L1, and a warp ballot
 // over 32 consecutive columns forms each word with no shared memory.
 // Out-of-plane neighbours are never read: the bounds lie >= 1 pixel
-// (in fact >= pad + border) inside the plane.
+// (in fact >= pad + border) inside the plane. A bf16 DoG (storage_dtype
+// "bfloat16") is read as such and widened to f32 before the compares (exact,
+// so the words are those of the widened stack); it halves the bytes read.
 #include "common.cuh"
 
-__global__ void extrema_words_kernel(const float* __restrict__ dog,
+template <typename T>
+__global__ void extrema_words_kernel(const T* __restrict__ dog,
                                      int* __restrict__ words, int n_s, int Hp,
                                      int Wp, int y0, int y1, int x0, int x1) {
   int x = blockIdx.x * blockDim.x + threadIdx.x;
@@ -27,13 +30,13 @@ __global__ void extrema_words_kernel(const float* __restrict__ dog,
   long long plane = (long long)Hp * Wp;
   bool m = false;
   if (y >= y0 && y < y1 && x >= x0 && x < x1) {
-    const float* c = dog + ((long long)f * (n_s + 2) + s) * plane + (long long)y * Wp + x;
-    float v = c[0];
+    const T* c = dog + ((long long)f * (n_s + 2) + s) * plane + (long long)y * Wp + x;
+    float v = to_f32(c[0]);
     float mx = v, mn = v;
     for (int ds = -1; ds <= 1; ++ds)
       for (int dy = -1; dy <= 1; ++dy)
         for (int dx = -1; dx <= 1; ++dx) {
-          float q = c[ds * plane + dy * Wp + dx];
+          float q = to_f32(c[ds * plane + dy * Wp + dx]);
           mx = fmaxf(mx, q);
           mn = fminf(mn, q);
         }
@@ -44,15 +47,22 @@ __global__ void extrema_words_kernel(const float* __restrict__ dog,
     words[((long long)fs * Hp + y) * (Wp / 32) + x / 32] = (int)bits;
 }
 
-// dog (B, n_s + 2, Hp, Wp) f32 -> words (B, n_s, Hp, Wp / 32) int32.
-// Wp must be a multiple of 128 (every block covers whole words).
-SIFT_EXPORT int sift_extrema_words(const float* dog, int* words, int B, int n_s,
-                                   int Hp, int Wp, int y0, int y1, int x0, int x1,
-                                   cudaStream_t stream) {
+// dog (B, n_s + 2, Hp, Wp) of type dog_t (f32 or bf16) -> words (B, n_s,
+// Hp, Wp / 32) int32. Wp must be a multiple of 128 (every block covers whole
+// words).
+SIFT_EXPORT int sift_extrema_words(const void* dog, int dog_t, int* words, int B,
+                                   int n_s, int Hp, int Wp, int y0, int y1, int x0,
+                                   int x1, cudaStream_t stream) {
   if (Wp % 128 != 0) return (int)cudaErrorInvalidValue;
   dim3 block(128);
   dim3 grid(Wp / 128, Hp, B * n_s);
-  extrema_words_kernel<<<grid, block, 0, stream>>>(dog, words, n_s, Hp, Wp, y0,
-                                                   y1, x0, x1);
+  if (dog_t == SIFT_BF16)
+    extrema_words_kernel<bf16><<<grid, block, 0, stream>>>((const bf16*)dog, words, n_s,
+                                                           Hp, Wp, y0, y1, x0, x1);
+  else if (dog_t == SIFT_F32)
+    extrema_words_kernel<float><<<grid, block, 0, stream>>>((const float*)dog, words, n_s,
+                                                            Hp, Wp, y0, y1, x0, x1);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -26,6 +26,11 @@
 // a few GFLOP per 1080p batch. One block per lane, with dead lanes exiting
 // at once, keeps the design simple; a later version can give a warp per
 // row and reduce across the warp in a fixed order.
+//
+// The Gaussian planes may be f32 or bf16 (storage_dtype "bfloat16" or
+// "split", gather_dtype "bfloat16"): every kernel here is a template on the
+// plane type and widens each sample to f32 at the load, which is exact, so a
+// bf16 stack gives the histograms of its widened f32 copy.
 #include "common.cuh"
 
 #define R_ORI_MAX 16
@@ -47,7 +52,8 @@ __device__ __forceinline__ int orientation_lane(float scale, float radius_factor
 // samples within the radius and inside [1, w-2]. g points at the sample of
 // row y + dy, column x, in a plane of row stride `stride` (the Gaussian
 // level in device memory for K5, the staged window for K8).
-__device__ __forceinline__ void orientation_row(const float* g, int stride, int dy, int ri,
+template <typename T>
+__device__ __forceinline__ void orientation_row(const T* g, int stride, int dy, int ri,
                                                 float radius, int x, int w, float gws,
                                                 float bstep, int n_bins, float* acc) {
   for (int dx = -ri; dx <= ri; ++dx) {
@@ -55,8 +61,8 @@ __device__ __forceinline__ void orientation_row(const float* g, int stride, int 
     if (fabsf((float)dx) > radius || xx < 1 || xx > w - 2) continue;
     float d2 = (float)(dy * dy + dx * dx);
     float weight = exp_f32_via_f64(d2 * gws);
-    float gx = g[dx + 1] - g[dx - 1];
-    float gy = g[dx - stride] - g[dx + stride];
+    float gx = to_f32(g[dx + 1]) - to_f32(g[dx - 1]);
+    float gy = to_f32(g[dx - stride]) - to_f32(g[dx + stride]);
     float mag = sqrtf(gx * gx + gy * gy);
     int b = (int)round_half_away(bstep * atan2_f32(gy, gx));
     if (b >= n_bins) b -= n_bins;
@@ -65,8 +71,9 @@ __device__ __forceinline__ void orientation_row(const float* g, int stride, int 
   }
 }
 
+template <typename T>
 __global__ void orientation_kernel(
-    const float* __restrict__ gauss, int Hp, int Wp, const int* __restrict__ plane,
+    const T* __restrict__ gauss, int Hp, int Wp, const int* __restrict__ plane,
     const int* __restrict__ ys, const int* __restrict__ xs,
     const float* __restrict__ scales, const int* __restrict__ live,
     const int* __restrict__ count, float* __restrict__ hist, float* __restrict__ ang,
@@ -134,46 +141,55 @@ __global__ void orientation_kernel(
   npk[k] = cnt;
 }
 
-static int launch_orientation(const float* gauss, int Hp, int Wp, const int* plane,
-                              const int* y, const int* x, const float* scale,
-                              const int* live, const int* count, float* hist, float* ang,
-                              int* npk, int K, int h, int w, int pad, int n_bins,
-                              int n_peaks, float radius_factor, float lambda_ori,
-                              float ratio, float bstep, cudaStream_t stream) {
-  if (n_bins > MAX_BINS || n_peaks > MAX_PEAKS) return (int)cudaErrorInvalidValue;
+static int launch_orientation(const void* gauss, int gauss_t, int Hp, int Wp,
+                              const int* plane, const int* y, const int* x,
+                              const float* scale, const int* live, const int* count,
+                              float* hist, float* ang, int* npk, int K, int h, int w,
+                              int pad, int n_bins, int n_peaks, float radius_factor,
+                              float lambda_ori, float ratio, float bstep,
+                              cudaStream_t stream) {
+  if (n_bins > MAX_BINS || n_peaks > MAX_PEAKS ||
+      (gauss_t != SIFT_F32 && gauss_t != SIFT_BF16))
+    return (int)cudaErrorInvalidValue;
   if (K == 0) return 0;
-  orientation_kernel<<<K, 64, 0, stream>>>(gauss, Hp, Wp, plane, y, x, scale, live,
-                                           count, hist, ang, npk, h, w, pad, n_bins,
-                                           n_peaks, radius_factor, lambda_ori,
-                                           ratio, bstep);
+  if (gauss_t == SIFT_BF16)
+    orientation_kernel<bf16><<<K, 64, 0, stream>>>(
+        (const bf16*)gauss, Hp, Wp, plane, y, x, scale, live, count, hist, ang, npk, h, w,
+        pad, n_bins, n_peaks, radius_factor, lambda_ori, ratio, bstep);
+  else
+    orientation_kernel<float><<<K, 64, 0, stream>>>(
+        (const float*)gauss, Hp, Wp, plane, y, x, scale, live, count, hist, ang, npk, h,
+        w, pad, n_bins, n_peaks, radius_factor, lambda_ori, ratio, bstep);
   return (int)cudaGetLastError();
 }
 
-// gauss (n_planes, Hp, Wp) f32; plane/y/x/live (K,) int32 (y, x unpadded
+// gauss (n_planes, Hp, Wp) of type gauss_t (f32 or bf16); plane/y/x/live (K,) int32 (y, x unpadded
 // octave coordinates); scale (K,) f32 -> hist (K, n_bins) raw f32, ang
 // (K, n_peaks) f32, npk (K,) int32. Dead lanes get zeros.
-SIFT_EXPORT int sift_orientation(const float* gauss, int Hp, int Wp,
+SIFT_EXPORT int sift_orientation(const void* gauss, int gauss_t, int Hp, int Wp,
                                  const int* plane, const int* y, const int* x,
                                  const float* scale, const int* live, float* hist,
                                  float* ang, int* npk, int K, int h, int w, int pad,
                                  int n_bins, int n_peaks, float radius_factor,
                                  float lambda_ori, float ratio, float bstep,
                                  cudaStream_t stream) {
-  return launch_orientation(gauss, Hp, Wp, plane, y, x, scale, live, nullptr, hist, ang,
+  return launch_orientation(gauss, gauss_t, Hp, Wp, plane, y, x, scale, live, nullptr,
+                            hist, ang,
                             npk, K, h, w, pad, n_bins, n_peaks, radius_factor,
                             lambda_ori, ratio, bstep, stream);
 }
 
 // K5': the same with lane i live iff i < *count (count: one int32 on the
 // device).
-SIFT_EXPORT int sift_orientation_prefix(const float* gauss, int Hp, int Wp,
+SIFT_EXPORT int sift_orientation_prefix(const void* gauss, int gauss_t, int Hp, int Wp,
                                         const int* plane, const int* y, const int* x,
                                         const float* scale, const int* count,
                                         float* hist, float* ang, int* npk, int K, int h,
                                         int w, int pad, int n_bins, int n_peaks,
                                         float radius_factor, float lambda_ori,
                                         float ratio, float bstep, cudaStream_t stream) {
-  return launch_orientation(gauss, Hp, Wp, plane, y, x, scale, nullptr, count, hist, ang,
+  return launch_orientation(gauss, gauss_t, Hp, Wp, plane, y, x, scale, nullptr, count,
+                            hist, ang,
                             npk, K, h, w, pad, n_bins, n_peaks, radius_factor,
                             lambda_ori, ratio, bstep, stream);
 }
@@ -189,18 +205,19 @@ SIFT_EXPORT int sift_orientation_prefix(const float* gauss, int Hp, int Wp,
 // orientation_peaks, as the JAX extractor does for this mode.
 //
 // Designed for the card, not copied from K5: the block first stages the
-// keypoint's (2 r_max + 3)^2 window (<= 35 x 35 f32, 4.9 KB) in shared
-// memory with coalesced row reads, then thread r sums window row r from
-// there with K5's per-sample code, in K5's order (columns ascending, then
-// rows ascending per bin). Samples past a keypoint's radius add nothing, so
-// for a radius <= r_max (always, within its bucket) its raw row equals K5's
-// bit for bit.
+// keypoint's (2 r_max + 3)^2 window (<= 35 x 35 f32, 4.9 KB, widened to f32
+// as it is staged) in shared memory with coalesced row reads, then thread r
+// sums window row r from there with K5's per-sample code, in K5's order
+// (columns ascending, then rows ascending per bin). Samples past a
+// keypoint's radius add nothing, so for a radius <= r_max (always, within
+// its bucket) its raw row equals K5's bit for bit.
 //
 // Bound on the H100: as K5, the latency of the per-row serial sums; the
 // window reads are the bytes (each live lane reads (2 r_max + 3)^2 floats
 // once and writes 36).
+template <typename T>
 __global__ void orientation_perkey_kernel(
-    const float* __restrict__ gauss, int Hp, int Wp, const int* __restrict__ plane,
+    const T* __restrict__ gauss, int Hp, int Wp, const int* __restrict__ plane,
     const int* __restrict__ ys, const int* __restrict__ xs,
     const float* __restrict__ scales, const int* __restrict__ count,
     float* __restrict__ hist, int h, int w, int pad, int n_bins, int r_max,
@@ -219,9 +236,10 @@ __global__ void orientation_perkey_kernel(
   int n = 2 * ri + 1;
   int y = ys[k], x = xs[k];
   int wn = 2 * r_max + 3;
-  const float* g0 = gauss + (long long)plane[k] * Hp * Wp +
-                    (long long)(y + pad - r_max - 1) * Wp + (x + pad - r_max - 1);
-  for (int i = t; i < wn * wn; i += blockDim.x) win[i] = g0[(i / wn) * Wp + i % wn];
+  const T* g0 = gauss + (long long)plane[k] * Hp * Wp +
+                (long long)(y + pad - r_max - 1) * Wp + (x + pad - r_max - 1);
+  for (int i = t; i < wn * wn; i += blockDim.x)
+    win[i] = to_f32(g0[(i / wn) * Wp + i % wn]);
   for (int i = t; i < n * n_bins; i += blockDim.x) rows[i / n_bins][i % n_bins] = 0.0f;
   __syncthreads();
   if (t < n) {
@@ -239,20 +257,27 @@ __global__ void orientation_perkey_kernel(
   }
 }
 
-// gauss (n_planes, Hp, Wp) f32; plane/y/x (K,) int32 (y, x unpadded octave
-// coordinates, pad >= r_max + 1); scale (K,) f32; count: one int32 on the
-// device -> hist (K, n_bins) raw f32, zero for lanes >= count.
-SIFT_EXPORT int sift_orientation_perkey(const float* gauss, int Hp, int Wp,
+// gauss (n_planes, Hp, Wp) of type gauss_t (f32 or bf16); plane/y/x (K,)
+// int32 (y, x unpadded octave coordinates, pad >= r_max + 1); scale (K,) f32;
+// count: one int32 on the device -> hist (K, n_bins) raw f32, zero for lanes
+// >= count.
+SIFT_EXPORT int sift_orientation_perkey(const void* gauss, int gauss_t, int Hp, int Wp,
                                         const int* plane, const int* y, const int* x,
                                         const float* scale, const int* count, float* hist,
                                         int K, int h, int w, int pad, int n_bins, int r_max,
                                         float radius_factor, float lambda_ori, float bstep,
                                         cudaStream_t stream) {
-  if (n_bins > MAX_BINS || r_max > R_ORI_MAX || pad < r_max + 1)
+  if (n_bins > MAX_BINS || r_max > R_ORI_MAX || pad < r_max + 1 ||
+      (gauss_t != SIFT_F32 && gauss_t != SIFT_BF16))
     return (int)cudaErrorInvalidValue;
   if (K == 0) return 0;
-  orientation_perkey_kernel<<<K, 64, 0, stream>>>(gauss, Hp, Wp, plane, y, x, scale, count,
-                                                  hist, h, w, pad, n_bins, r_max,
-                                                  radius_factor, lambda_ori, bstep);
+  if (gauss_t == SIFT_BF16)
+    orientation_perkey_kernel<bf16><<<K, 64, 0, stream>>>(
+        (const bf16*)gauss, Hp, Wp, plane, y, x, scale, count, hist, h, w, pad, n_bins,
+        r_max, radius_factor, lambda_ori, bstep);
+  else
+    orientation_perkey_kernel<float><<<K, 64, 0, stream>>>(
+        (const float*)gauss, Hp, Wp, plane, y, x, scale, count, hist, h, w, pad, n_bins,
+        r_max, radius_factor, lambda_ori, bstep);
   return (int)cudaGetLastError();
 }

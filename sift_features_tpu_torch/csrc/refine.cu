@@ -19,6 +19,12 @@
 // Reading from global memory has no window limit, so unlike the TPU walk
 // kernel (whose region windows let ~1.4% of walks escape to K4) this K3
 // never escapes: column 9 of its rows is always 0.
+//
+// A bf16 DoG (storage_dtype "bfloat16") goes to K4 alone, as the JAX
+// dispatch sends a non-f32 stack to the step loop in every refine_mode
+// (ops/extrema.py:refine_tpu_auto; the walk, region and tile kernels assert
+// f32). `newton_at` is a template on the stack type and widens each cube
+// value to f32 at the load; only K4 is built for bf16.
 #include "common.cuh"
 
 #include <limits.h>
@@ -49,10 +55,11 @@ __device__ __forceinline__ int step_of(float o) {
 
 // Cube centred at (plane p, row y, column x) of a stack with plane size
 // `plane` and row length Wp; the caller keeps the cube inside the stack.
-__device__ NewtonResult newton_at(const float* __restrict__ dog, long long plane,
+template <typename T>
+__device__ NewtonResult newton_at(const T* __restrict__ dog, long long plane,
                                   int Wp, int p, int y, int x, NewtonParams prm) {
-  const float* c0 = dog + (long long)p * plane + (long long)y * Wp + x;
-#define C(ds, dy, dx) c0[((ds)-1) * plane + ((dy)-1) * Wp + ((dx)-1)]
+  const T* c0 = dog + (long long)p * plane + (long long)y * Wp + x;
+#define C(ds, dy, dx) to_f32(c0[((ds)-1) * plane + ((dy)-1) * Wp + ((dx)-1)])
   const float two = 2.0f, four = 4.0f;
   float v = C(1, 1, 1);
   float v2 = v * two;
@@ -105,7 +112,8 @@ __device__ NewtonResult newton_at(const float* __restrict__ dog, long long plane
 // K4: rows (K, 16) = ok | step_s | step_y | step_x | off_s | off_y | off_x |
 // response | keep | 0...; all zero where active == 0. p/y/x are clamped
 // into [1, n_planes-2] x [1, Hp-2] x [1, Wp-2] like the plain gather.
-__global__ void refine_step_kernel(const float* __restrict__ dog, int n_planes,
+template <typename T>
+__global__ void refine_step_kernel(const T* __restrict__ dog, int n_planes,
                                    int Hp, int Wp, const int* __restrict__ p,
                                    const int* __restrict__ y,
                                    const int* __restrict__ x,
@@ -184,15 +192,21 @@ __global__ void refine_walk_kernel(const float* __restrict__ dog, int n_planes,
   for (int j = 9; j < 16; ++j) row[j] = 0.0f;
 }
 
-SIFT_EXPORT int sift_refine_step(const float* dog, int n_planes, int Hp, int Wp,
-                                 const int* p, const int* y, const int* x,
+// dog (n_planes, Hp, Wp) of type dog_t (f32 or bf16).
+SIFT_EXPORT int sift_refine_step(const void* dog, int dog_t, int n_planes, int Hp,
+                                 int Wp, const int* p, const int* y, const int* x,
                                  const int* active, float* out, int K,
                                  float contrast_threshold, float edge_threshold,
                                  float n_scales, cudaStream_t stream) {
+  if (dog_t != SIFT_F32 && dog_t != SIFT_BF16) return (int)cudaErrorInvalidValue;
   if (K == 0) return 0;
   NewtonParams prm{contrast_threshold, edge_threshold, n_scales};
-  refine_step_kernel<<<(K + 127) / 128, 128, 0, stream>>>(dog, n_planes, Hp, Wp, p, y,
-                                                          x, active, out, K, prm);
+  if (dog_t == SIFT_BF16)
+    refine_step_kernel<bf16><<<(K + 127) / 128, 128, 0, stream>>>(
+        (const bf16*)dog, n_planes, Hp, Wp, p, y, x, active, out, K, prm);
+  else
+    refine_step_kernel<float><<<(K + 127) / 128, 128, 0, stream>>>(
+        (const float*)dog, n_planes, Hp, Wp, p, y, x, active, out, K, prm);
   return (int)cudaGetLastError();
 }
 

@@ -20,6 +20,15 @@ K4), refine_mode="step" K4 only; window_kernel="perkey" replaces K5 / K5′
 by K8 and K6 / K6′ by K7, launched per scale bucket, with the peaks taken
 from the smoothed histograms.
 
+The storage modes of SiftConfig act on this path alone, as in the JAX
+package: storage_dtype="bfloat16" rounds the seed to bf16 and K1 stores
+bf16 levels and DoG (the refinement then takes the K4 step loop, whatever
+refine_mode says, and the window kernels read bf16); "split" stores the
+Gaussian levels bf16 and the DoG f32, bit-equal to the f32 run's, and
+chains the octaves through K1's f32 level S; gather_dtype="bfloat16" adds
+K1's bf16 copy of the Gaussian levels for the window kernels. The tiny
+octaves compute in f32 and round their next base back to the storage type.
+
 The per-frame path `_extract_single` builds each octave level by level (K9)
 and runs the single-frame `_detect_octave`: K2′ words (or the plain extremum
 scan), K3 or K4, K5′ histograms, K6′ descriptors. `extract_with_precomputed`
@@ -156,12 +165,14 @@ def _refine_auto(dog_flat, s0, y0, x0, valid, pad: int, h: int, w: int,
 
 
 def _detect_octave_batched(gauss_p, dog_p, octave: int, cfg: SiftConfig, hw,
-                           describe: bool = True):
+                           describe: bool = True, gauss_win=None):
     """Frame-batched detection on the padded stacks of K1: gauss_p (B, S,
     Hp, Wp) = levels 1..S, dog_p (B, S+2, Hp, Wp); hw the unpadded octave
     size (models/extractor.py:_detect_octave_batched, stages="full").
-    describe=False (the budget path) skips the descriptors and returns their
-    inputs `desc_in` and the window stack `win_ctx` instead."""
+    gauss_win: K1's bf16 copy of gauss_p (gather16), which the window
+    kernels then sample instead. describe=False (the budget path) skips the
+    descriptors and returns their inputs `desc_in` and the window stack
+    `win_ctx` instead."""
     b, n_dog, hp, wp = dog_p.shape
     h, w = hw
     dev = dog_p.device
@@ -179,8 +190,9 @@ def _detect_octave_batched(gauss_p, dog_p, octave: int, cfg: SiftConfig, hw,
     surv, svalid, n_surv = _survivors(rows, valid, b, k, k2, p)
     surv["kp_scale"] = ori_ops.kp_scale_of(surv["s"], surv["off_s"], cfg)
 
-    n_win = gauss_p.shape[1]
-    gauss_flat = gauss_p.reshape(b * n_win, hp, wp)
+    win_src = gauss_p if gauss_win is None else gauss_win
+    n_win = win_src.shape[1]
+    gauss_flat = win_src.reshape(b * n_win, hp, wp)
     live2 = svalid.reshape(-1)
     ori_args = (gauss_flat, (surv["s"] - 1).reshape(-1)
                 + _frame_offsets(b, n_win, k2, dev))
@@ -392,12 +404,25 @@ def _extract_single(img_u8: torch.Tensor, n_octaves: int, cfg: SiftConfig):
     return _concat(out, 0)
 
 
+def _tiny_octave(initial: torch.Tensor, octave: int, cfg: SiftConfig):
+    """A tiny top octave of the batched path (padded side < 256, the JAX
+    extractor.py:513-531): the levels of the (B, h, w) base in f32 whatever
+    its storage type, `_detect_octave_plain`, and the next octave's base
+    rounded back to the base's type. -> (result, next base)."""
+    levels = octave_levels(initial.float(), cfg)
+    res = _detect_octave_plain(torch.stack(levels, 1), octave, cfg)
+    nxt = resize_nearest_half(levels[cfg.scales_per_octave])
+    return res, nxt.to(initial.dtype)
+
+
 def _extract_batch_fused(imgs_u8: torch.Tensor, n_octaves: int,
                          cfg: SiftConfig, budget: int | None = None) -> dict:
     """(B, H, W) u8 on the target device -> padded result dict
     (models/extractor.py:_extract_batch_fused)."""
     p = desc_ops.PAD_DESC
     initial = create_seed_image(imgs_u8, cfg)                # (B, h, w)
+    if cfg.storage_dtype == "bfloat16":
+        initial = initial.to(torch.bfloat16)
     out, hw_list = [], []
     for o in range(n_octaves):
         h, w = initial.shape[-2], initial.shape[-1]
@@ -405,15 +430,16 @@ def _extract_batch_fused(imgs_u8: torch.Tensor, n_octaves: int,
         if h_pad >= 256 and w_pad >= 256:
             base = reflect_pad_image(initial, p, w_pad - w - 2 * p,
                                      h_pad - h - 2 * p).contiguous()
-            g, d = octave_fused(base, cfg)
+            g, d, g16, l3 = octave_fused(base, cfg, gather16=cfg.gather16,
+                                         split=cfg.split)
             out.append(_detect_octave_batched(g, d, o, cfg, (h, w),
-                                              describe=budget is None))
-            nxt = g[:, cfg.scales_per_octave - 1]
+                                              describe=budget is None,
+                                              gauss_win=g16))
+            nxt = l3 if l3 is not None else g[:, cfg.scales_per_octave - 1]
             initial = nxt[:, p:p + (h // 2) * 2:2, p:p + (w // 2) * 2:2]
         else:
-            levels = octave_levels(initial, cfg)
-            out.append(_detect_octave_plain(torch.stack(levels, 1), o, cfg))
-            initial = resize_nearest_half(levels[cfg.scales_per_octave])
+            r, initial = _tiny_octave(initial, o, cfg)
+            out.append(r)
         hw_list.append((h, w))
     if budget is not None:
         return _assemble_budget(out, hw_list, budget, cfg)

@@ -148,15 +148,16 @@ def _cube_offsets(H: int, W: int, device: torch.device) -> torch.Tensor:
 
 
 def gather_cubes(dog_flat: torch.Tensor, p, y, x) -> torch.Tensor:
-    """(K,) plane/row/column indices -> (K, 27) cubes from dog_flat (P, H,
-    W); positions are clamped to [1, P-2] x [1, H-2] x [1, W-2]."""
+    """(K,) plane/row/column indices -> (K, 27) f32 cubes from dog_flat (P,
+    H, W), f32 or bf16 (widened at the gather, exactly); positions are
+    clamped to [1, P-2] x [1, H-2] x [1, W-2]."""
     P, H, W = dog_flat.shape
     p = torch.clamp(p.long(), 1, P - 2)
     y = torch.clamp(y.long(), 1, H - 2)
     x = torch.clamp(x.long(), 1, W - 2)
     off = _cube_offsets(H, W, dog_flat.device)
     lin = ((p * H + y) * W + x)[:, None] + off
-    return dog_flat.reshape(-1)[lin]
+    return dog_flat.reshape(-1)[lin].to(F32)
 
 
 def newton_step(dog_flat, p, y, x, active, cfg: SiftConfig) -> torch.Tensor:

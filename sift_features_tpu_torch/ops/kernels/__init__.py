@@ -5,7 +5,10 @@ naming the TPU kernel it replaces. IDs are those of PERF.md's kernel table;
 a primed ID (K2′, K5′, K6′) is the single-frame or count-prefix variant of
 the same TPU `_kernel`, served by the same CUDA kernel. A wrapper runs the plain version for a
 CPU tensor and launches the kernel for a CUDA tensor (or raises); the
-launch counts live in `build.LAUNCHES`.
+launch counts live in `build.LAUNCHES`. A name with a suffix is a storage
+form of the kernel (SiftConfig.storage_dtype / gather_dtype): `:bf16`
+reads bf16 planes, `K1:split` / `K9:split` store bf16 Gaussian levels and
+an f32 DoG, `K1:g16` / `K9:g16` add a bf16 copy of the Gaussian levels.
 """
 
 # name -> (CUDA source, the TPU kernel it replaces)
@@ -39,3 +42,13 @@ KERNELS = {
     "K11": ("sift_features_tpu_torch/csrc/refine.cu",
             "sift_features_tpu/ops/pallas/refine_tile_kernel.py:291"),
 }
+_PYR = "sift_features_tpu/ops/pallas/pyramid_kernel.py:"
+KERNELS.update({
+    "K1:bf16": (KERNELS["K1"][0], _PYR + "352"),
+    "K1:split": (KERNELS["K1"][0], _PYR + "352"),
+    "K1:g16": (KERNELS["K1"][0], _PYR + "352"),
+    "K9:bf16": (KERNELS["K9"][0], _PYR + "128"),
+    "K9:split": (KERNELS["K9"][0], _PYR + "128"),
+    "K9:g16": (KERNELS["K9"][0], _PYR + "128"),
+    **{f"{k}:bf16": KERNELS[k] for k in ("K2", "K4", "K5", "K6", "K6′", "K7",
+                                         "K8")}})

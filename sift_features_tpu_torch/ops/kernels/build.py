@@ -11,7 +11,9 @@ one is loaded as it is. A failed build raises with nvcc's output; nothing
 runs without its kernel.
 
 `LAUNCHES` counts, per kernel, the calls of its wrapper that launched it
-on the card (the CPU path of a wrapper counts nothing).
+on the card (the CPU path of a wrapper counts nothing). A launch on bf16
+planes (the storage modes) counts under its own name, the kernel's name
+with a suffix (`K2:bf16`, `K1:split`, ...).
 """
 
 from __future__ import annotations
@@ -37,6 +39,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES: dict[str, int] = {}
 
+# the plane types a kernel takes, as the C entries code them
+# (csrc/common.cuh: SIFT_F32, SIFT_BF16)
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -47,6 +53,21 @@ def count_launch(name: str) -> None:
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+def dtype_code(name: str, t: torch.Tensor) -> int:
+    """The C code of t's dtype; raises for a type no kernel takes."""
+    code = DTYPE_CODE.get(t.dtype)
+    if code is None:
+        raise ValueError(f"{name}: planes must be float32 or bfloat16, not "
+                         f"{t.dtype}")
+    return code
+
+
+def form(kernel: str, t: torch.Tensor) -> str:
+    """The launch-count name of `kernel` on planes t: the name itself for
+    f32, with ":bf16" for bf16."""
+    return kernel if t.dtype == torch.float32 else f"{kernel}:bf16"
 
 
 def _nvcc() -> str:

@@ -20,6 +20,10 @@ dispatcher launches per scale bucket with the bucket's static window bound
 when window_kernel="perkey"; `descriptor_hist_bucketed` here does the same
 then.
 
+The Gaussian stack may be f32 or bf16 (the storage modes; launches count
+as `K6:bf16`, `K6′:bf16`, `K7:bf16`): the kernels widen each sample to f32
+at the load, the plain version each gathered window, both exactly.
+
 Per-sample math follows the TPU kernel in f32 (Cephes atan2, the
 (u_row * u_col) * (m * u_ori) product order); sin, cos and exp round once
 from f64. Summation order, kernel and plain version alike: window row r
@@ -98,7 +102,7 @@ def _hist(gauss_flat, plane, xi, yi, kp_scale, angle, live, h, w, pad, cfg, R):
     cos_s = torch.cos(ori_rad.double()).to(F32) / hw
 
     lin = window_index(yi, xi, pad, R, wp) + plane[:, None, None] * hp * wp
-    win = gauss_flat.reshape(-1)[lin]
+    win = gauss_flat.reshape(-1)[lin].to(F32)
     gx = win[:, 1:-1, 2:] - win[:, 1:-1, :-2]
     gy = win[:, :-2, 1:-1] - win[:, 2:, 1:-1]
 
@@ -180,16 +184,17 @@ def _launch(gauss_flat, plane, xi, yi, kp_scale, angle, live, count, h, w,
     kp_scale = kp_scale.to(F32).contiguous()
     angle = angle.to(F32).contiguous()
     build.require_cuda(name, gauss_flat, plane, xi, yi, kp_scale, angle, flag)
+    gauss_t = build.dtype_code(name, gauss_flat)
     M = plane.shape[0]
     hist = torch.empty((M, cfg.descriptor_size), dtype=F32,
                        device=gauss_flat.device)
     prm = _params(cfg)
     entry = "sift_descriptor" if count is None else "sift_descriptor_prefix"
     fn = build.bind("descriptor", entry,
-                    [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
+                    [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
                     + [ctypes.c_int] * 7 + [ctypes.c_float] * 6
                     + [ctypes.c_void_p])
-    rc = fn(build.ptr(gauss_flat), hp, wp, build.ptr(plane), build.ptr(yi),
+    rc = fn(build.ptr(gauss_flat), gauss_t, hp, wp, build.ptr(plane), build.ptr(yi),
             build.ptr(xi), build.ptr(kp_scale), build.ptr(angle),
             build.ptr(flag), build.ptr(hist), M, h, w, pad, R_DESC_MAX,
             cfg.descriptor_n_histograms, cfg.descriptor_n_bins,
@@ -210,8 +215,9 @@ def descriptor_hist(gauss_flat: torch.Tensor, plane, xi, yi, kp_scale, angle,
                                 live, h, w, pad, cfg)
     hist, rc = _launch(gauss_flat, plane, xi, yi, kp_scale, angle, live, None,
                        h, w, pad, cfg, "descriptor_hist")
-    build.check(rc, "K6 descriptor")
-    build.count_launch("K6")
+    name = build.form("K6", gauss_flat)
+    build.check(rc, f"{name} descriptor")
+    build.count_launch(name)
     return hist
 
 
@@ -228,8 +234,9 @@ def descriptor_hist_prefix(gauss_flat: torch.Tensor, plane, xi, yi, kp_scale,
                                 live, h, w, pad, cfg)
     hist, rc = _launch(gauss_flat, plane, xi, yi, kp_scale, angle, None, count,
                        h, w, pad, cfg, "descriptor_hist_prefix")
-    build.check(rc, "K6′ descriptor_prefix")
-    build.count_launch("K6′")
+    name = build.form("K6′", gauss_flat)
+    build.check(rc, f"{name} descriptor_prefix")
+    build.count_launch(name)
     return hist
 
 
@@ -272,15 +279,16 @@ def descriptor_hist_perkey(gauss_flat: torch.Tensor, plane, xi, yi, kp_scale,
     angle = angle.to(F32).contiguous()
     build.require_cuda("descriptor_hist_perkey", gauss_flat, plane, xi, yi,
                        kp_scale, angle, count)
+    gauss_t = build.dtype_code("descriptor_hist_perkey", gauss_flat)
     M = plane.shape[0]
     hist = torch.empty((M, cfg.descriptor_size), dtype=F32,
                        device=gauss_flat.device)
     prm = _params(cfg)
     fn = build.bind("descriptor", "sift_descriptor_perkey",
-                    [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
+                    [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
                     + [ctypes.c_int] * 7 + [ctypes.c_float] * 6
                     + [ctypes.c_void_p])
-    rc = fn(build.ptr(gauss_flat), hp, wp, build.ptr(plane), build.ptr(yi),
+    rc = fn(build.ptr(gauss_flat), gauss_t, hp, wp, build.ptr(plane), build.ptr(yi),
             build.ptr(xi), build.ptr(kp_scale), build.ptr(angle),
             build.ptr(count), build.ptr(hist), M, h, w, pad, r_max,
             cfg.descriptor_n_histograms, cfg.descriptor_n_bins,
@@ -288,8 +296,9 @@ def descriptor_hist_perkey(gauss_flat: torch.Tensor, plane, xi, yi, kp_scale,
             float(prm["deg2rad"]), float(prm["rad2deg"]),
             float(prm["bin_step"]), float(prm["wscale"]),
             build.stream_ptr(gauss_flat))
-    build.check(rc, "K7 descriptor_perkey")
-    build.count_launch("K7")
+    name = build.form("K7", gauss_flat)
+    build.check(rc, f"{name} descriptor_perkey")
+    build.count_launch(name)
     return hist
 
 

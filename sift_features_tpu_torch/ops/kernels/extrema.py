@@ -5,7 +5,8 @@ sift_features_tpu/ops/pallas/extrema_kernel.py:extrema_words_batched and K2′
 (`extrema_words_single`, one frame) replaces extrema_kernel.py:extrema_words;
 both are one `_kernel` on the TPU. The CUDA kernel is csrc/extrema.cu; its note gives the bound
 (memory: one read of the DoG stack) and the design (one thread per pixel, a
-warp ballot per 32 columns).
+warp ballot per 32 columns). The DoG may be f32 or bf16 (storage_dtype
+"bfloat16"; launches count as `K2:bf16`), widened to f32 at the load.
 """
 
 from __future__ import annotations
@@ -29,26 +30,28 @@ def pack_words(mask: torch.Tensor) -> torch.Tensor:
 
 
 def extrema_words_plain(dog: torch.Tensor, bounds, cfg: SiftConfig):
-    """Plain version of K2: dog (B, S+2, Hp, Wp) f32 -> (B, S, Hp, Wp // 32)
-    int32, the extremum mask inside bounds = (y0, y1, x0, x1)."""
-    return pack_words(extrema_mask(dog, cfg, bounds=bounds))
+    """Plain version of K2: dog (B, S+2, Hp, Wp) f32 or bf16 (widened to f32
+    first) -> (B, S, Hp, Wp // 32) int32, the extremum mask inside bounds =
+    (y0, y1, x0, x1)."""
+    return pack_words(extrema_mask(dog.float(), cfg, bounds=bounds))
 
 
 def _launch(dog: torch.Tensor, bounds, cfg: SiftConfig, name: str):
     build.require_cuda(name, dog)
     b, n_p, hp, wp = dog.shape
     n_s = cfg.scales_per_octave
-    if dog.dtype != torch.float32 or n_p != n_s + 2 or wp % 128:
-        raise ValueError(f"{name}: dog must be (S+2, Hp, Wp) float32 per frame "
+    dog_t = build.dtype_code(name, dog)
+    if n_p != n_s + 2 or wp % 128:
+        raise ValueError(f"{name}: dog must be (S+2, Hp, Wp) per frame "
                          "with Wp % 128 == 0")
     words = torch.empty((b, n_s, hp, wp // 32), dtype=torch.int32,
                         device=dog.device)
     fn = build.bind("extrema", "sift_extrema_words",
-                    [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
-                    + [ctypes.c_void_p])
+                    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                    + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     y0, y1, x0, x1 = (int(v) for v in bounds)
-    rc = fn(build.ptr(dog), build.ptr(words), b, n_s, hp, wp, y0, y1, x0, x1,
-            build.stream_ptr(dog))
+    rc = fn(build.ptr(dog), dog_t, build.ptr(words), b, n_s, hp, wp, y0, y1,
+            x0, x1, build.stream_ptr(dog))
     return words, rc
 
 
@@ -58,8 +61,9 @@ def extrema_words(dog: torch.Tensor, bounds, cfg: SiftConfig):
     if dog.device.type == "cpu":
         return extrema_words_plain(dog, bounds, cfg)
     words, rc = _launch(dog, bounds, cfg, "extrema_words")
-    build.check(rc, "K2 extrema_words")
-    build.count_launch("K2")
+    name = build.form("K2", dog)
+    build.check(rc, f"{name} extrema_words")
+    build.count_launch(name)
     return words
 
 
@@ -70,6 +74,7 @@ def extrema_words_single(dog: torch.Tensor, bounds, cfg: SiftConfig):
     if dog.device.type == "cpu":
         return extrema_words_plain(dog[None], bounds, cfg)[0]
     words, rc = _launch(dog[None], bounds, cfg, "extrema_words_single")
-    build.check(rc, "K2′ extrema_words_single")
-    build.count_launch("K2′")
+    name = build.form("K2′", dog)
+    build.check(rc, f"{name} extrema_words_single")
+    build.count_launch(name)
     return words[0]

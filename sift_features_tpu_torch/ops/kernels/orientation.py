@@ -21,6 +21,10 @@ JAX dispatcher launches per scale bucket with the bucket's static window
 bound when window_kernel="perkey"; `orientation_histograms_bucketed` here
 does the same then.
 
+The Gaussian stack may be f32 or bf16 (the storage modes; launches count
+as `K5:bf16`, `K5′:bf16`, `K8:bf16`): the kernels widen each sample to f32
+at the load, the plain versions each gathered window, both exactly.
+
 Outputs per lane: the RAW histogram (smoothing runs outside, as `_smooth`
 does in the JAX extractor), the first N_PEAKS_CAP peak angles of the smoothed
 histogram in ascending-bin order, and the true (uncapped) peak count. Dead
@@ -113,7 +117,7 @@ def _raw_hist(gauss_flat, plane, y, x, kp_scale, live, h, w, pad, cfg, R):
     gws = f32(-1.0, sigma) / (f32(2.0, sigma) * sigma * sigma)
 
     lin = window_index(y, x, pad, R, wp) + plane[:, None, None] * hp * wp
-    win = gauss_flat.reshape(-1)[lin]                       # (K, 2R+3, 2R+3)
+    win = gauss_flat.reshape(-1)[lin].to(F32)               # (K, 2R+3, 2R+3)
     gx = win[:, 1:-1, 2:] - win[:, 1:-1, :-2]
     gy = win[:, :-2, 1:-1] - win[:, 2:, 1:-1]
 
@@ -156,6 +160,7 @@ def _launch(gauss_flat, plane, y, x, kp_scale, live, count, h, w, pad, cfg,
     flag = (live if count is None else count.reshape(1)).to(torch.int32).contiguous()
     kp_scale = kp_scale.to(F32).contiguous()
     build.require_cuda(name, gauss_flat, plane, y, x, kp_scale, flag)
+    gauss_t = build.dtype_code(name, gauss_flat)
     K = plane.shape[0]
     n_bins = cfg.n_orientation_bins
     kw = dict(device=gauss_flat.device)
@@ -165,10 +170,10 @@ def _launch(gauss_flat, plane, y, x, kp_scale, live, count, h, w, pad, cfg,
     radius_factor, bstep = _params(cfg)
     entry = "sift_orientation" if count is None else "sift_orientation_prefix"
     fn = build.bind("orientation", entry,
-                    [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                    [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
                     + [ctypes.c_int] * 6 + [ctypes.c_float] * 4
                     + [ctypes.c_void_p])
-    rc = fn(build.ptr(gauss_flat), hp, wp, build.ptr(plane), build.ptr(y),
+    rc = fn(build.ptr(gauss_flat), gauss_t, hp, wp, build.ptr(plane), build.ptr(y),
             build.ptr(x), build.ptr(kp_scale), build.ptr(flag), build.ptr(hist),
             build.ptr(ang), build.ptr(npk), K, h, w, pad, n_bins, N_PEAKS_CAP,
             float(radius_factor), float(np.float32(cfg.lambda_ori)),
@@ -187,8 +192,9 @@ def orientation_hist_peaks(gauss_flat: torch.Tensor, plane, y, x, kp_scale,
                                  pad, cfg)
     out, rc = _launch(gauss_flat, plane, y, x, kp_scale, live, None, h, w, pad,
                       cfg, "orientation_hist_peaks")
-    build.check(rc, "K5 orientation")
-    build.count_launch("K5")
+    name = build.form("K5", gauss_flat)
+    build.check(rc, f"{name} orientation")
+    build.count_launch(name)
     return out
 
 
@@ -205,8 +211,9 @@ def orientation_hist_prefix(gauss_flat: torch.Tensor, plane, y, x, kp_scale,
                                  pad, cfg)
     out, rc = _launch(gauss_flat, plane, y, x, kp_scale, None, count, h, w, pad,
                       cfg, "orientation_hist_prefix")
-    build.check(rc, "K5′ orientation_prefix")
-    build.count_launch("K5′")
+    name = build.form("K5′", gauss_flat)
+    build.check(rc, f"{name} orientation_prefix")
+    build.count_launch(name)
     return out
 
 
@@ -247,21 +254,23 @@ def orientation_hist_perkey(gauss_flat: torch.Tensor, plane, y, x, kp_scale,
     kp_scale = kp_scale.to(F32).contiguous()
     build.require_cuda("orientation_hist_perkey", gauss_flat, plane, y, x,
                        kp_scale, count)
+    gauss_t = build.dtype_code("orientation_hist_perkey", gauss_flat)
     K = plane.shape[0]
     hist = torch.empty((K, cfg.n_orientation_bins), dtype=F32,
                        device=gauss_flat.device)
     radius_factor, bstep = _params(cfg)
     fn = build.bind("orientation", "sift_orientation_perkey",
-                    [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+                    [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
                     + [ctypes.c_int] * 6 + [ctypes.c_float] * 3
                     + [ctypes.c_void_p])
-    rc = fn(build.ptr(gauss_flat), hp, wp, build.ptr(plane), build.ptr(y),
+    rc = fn(build.ptr(gauss_flat), gauss_t, hp, wp, build.ptr(plane), build.ptr(y),
             build.ptr(x), build.ptr(kp_scale), build.ptr(count),
             build.ptr(hist), K, h, w, pad, cfg.n_orientation_bins, r_max,
             float(radius_factor), float(np.float32(cfg.lambda_ori)),
             float(bstep), build.stream_ptr(gauss_flat))
-    build.check(rc, "K8 orientation_perkey")
-    build.count_launch("K8")
+    name = build.form("K8", gauss_flat)
+    build.check(rc, f"{name} orientation_perkey")
+    build.count_launch(name)
     return hist
 
 

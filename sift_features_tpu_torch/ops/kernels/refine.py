@@ -16,6 +16,11 @@ live in csrc/refine.cu and share one __device__ Newton function; the notes
 there give each kernel's bound and design.
 
 Rows are (K, 16) f32 in the layout of ops/extrema.py (ROW_COLS).
+
+K4 also takes a bf16 DoG (storage_dtype "bfloat16", counted as `K4:bf16`):
+`_refine_auto` (models/extractor.py) sends a non-f32 stack to the step loop
+in every refine_mode, as ops/extrema.py:refine_tpu_auto does. K3, K10 and
+K11 take f32 only and raise otherwise, as their JAX kernels assert.
 """
 
 from __future__ import annotations
@@ -42,27 +47,38 @@ def _i32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int32).contiguous()
 
 
+def _require_f32(name: str, dog_flat: torch.Tensor) -> None:
+    """K3, K10 and K11 read f32 stacks only (refine_walk_kernel.py:356,
+    refine_region_kernel.py:239, refine_tile_kernel.py:337 assert it)."""
+    if dog_flat.dtype != torch.float32:
+        raise ValueError(f"{name}: the DoG must be float32, not "
+                         f"{dog_flat.dtype} (a bf16 stack takes the K4 loop)")
+
+
 def refine_step(dog_flat: torch.Tensor, p, y, x, active,
                 cfg: SiftConfig) -> torch.Tensor:
     """K4 wrapper: one masked Newton step at plane p / row y / column x of
-    dog_flat (P, Hp, Wp). The plain version (ops/extrema.py:newton_step) for
-    a CPU tensor; the CUDA kernel for a CUDA tensor (or an error)."""
+    dog_flat (P, Hp, Wp), f32 or bf16. The plain version
+    (ops/extrema.py:newton_step) for a CPU tensor; the CUDA kernel for a
+    CUDA tensor (or an error)."""
     if dog_flat.device.type == "cpu":
         return newton_step(dog_flat, p, y, x, active, cfg)
     p, y, x, active = _i32(p), _i32(y), _i32(x), _i32(active)
     build.require_cuda("refine_step", dog_flat, p, y, x, active)
+    dog_t = build.dtype_code("refine_step", dog_flat)
     n_planes, hp, wp = dog_flat.shape
     k = p.shape[0]
     out = torch.empty((k, ROW_COLS), dtype=torch.float32, device=dog_flat.device)
     fn = build.bind("refine", "sift_refine_step",
-                    [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
+                    [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
                     + [ctypes.c_int] + [ctypes.c_float] * 3 + [ctypes.c_void_p])
-    rc = fn(build.ptr(dog_flat), n_planes, hp, wp, build.ptr(p), build.ptr(y),
-            build.ptr(x), build.ptr(active), build.ptr(out), k,
+    rc = fn(build.ptr(dog_flat), dog_t, n_planes, hp, wp, build.ptr(p),
+            build.ptr(y), build.ptr(x), build.ptr(active), build.ptr(out), k,
             float(cfg.contrast_threshold), float(cfg.edge_threshold),
             float(cfg.scales_per_octave), build.stream_ptr(dog_flat))
-    build.check(rc, "K4 refine_step")
-    build.count_launch("K4")
+    name = build.form("K4", dog_flat)
+    build.check(rc, f"{name} refine_step")
+    build.count_launch(name)
     return out
 
 
@@ -83,6 +99,7 @@ def refine_walk(dog_flat: torch.Tensor, s0, y0, x0, valid, pad: int, h: int,
     (ops/extrema.py:refine) for a CPU tensor; the CUDA kernel for a CUDA
     tensor (or an error). Positions are padded coordinates; plane_off (K,)
     is the per-candidate DoG plane offset (frame * planes)."""
+    _require_f32("refine_walk", dog_flat)
     if dog_flat.device.type == "cpu":
         return refine(dog_flat, s0, y0, x0, valid, pad, h, w, cfg, plane_off)
     k = s0.shape[0]
@@ -146,6 +163,7 @@ def region_step_plain(dog_flat: torch.Tensor, g: dict,
 def region_step(dog_flat: torch.Tensor, g: dict, cfg: SiftConfig) -> torch.Tensor:
     """K10 on lanes grouped by `region_order`: the plain version for a CPU
     tensor; the CUDA kernel for a CUDA tensor (or an error)."""
+    _require_f32("refine_step_region", dog_flat)
     if dog_flat.device.type == "cpu":
         return region_step_plain(dog_flat, g, cfg)
     _, hp, wp = dog_flat.shape
@@ -260,6 +278,7 @@ def refine_tile_slots(dog_flat: torch.Tensor, g: RegionLayout, pad: int,
     """K11 wrapper -> (T_cap, 16) slot rows (column 9: escaped). The plain
     version for a CPU tensor; the CUDA kernel for a CUDA tensor (or an
     error)."""
+    _require_f32("refine_tile_slots", dog_flat)
     if dog_flat.device.type == "cpu":
         return refine_tile_plain(dog_flat, g, pad, h, w, cfg)
     slots = [_i32(t) for t in (g.s_slot, g.y_slot, g.x_slot, g.a_slot, g.r0_b,

@@ -33,16 +33,30 @@ def test_config_and_taps_bit_equal(fields):
 
 
 def test_config_unknown_field_and_unported_modes_raise():
+    """Unknown fields and unknown mode names raise ValueError; every mode
+    of the JAX config passes, and the storage flags follow the JAX extractor
+    (models/extractor.py:498-500: gather16 only over f32 storage)."""
     with pytest.raises(ValueError):
         config_from_reference({"not_a_field": 1})
-    for bad in ({"storage_dtype": "bfloat16"}, {"storage_dtype": "split"},
-                {"gather_dtype": "bfloat16"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            check_supported(SiftConfig(**bad))
-    for bad in ({"refine_mode": "walks"}, {"window_kernel": "packd"}):
+    for bad in ({"storage_dtype": "float16"}, {"storage_dtype": "bf16"},
+                {"gather_dtype": "split"}, {"refine_mode": "walks"},
+                {"window_kernel": "packd"}):
         with pytest.raises(ValueError):
             check_supported(SiftConfig(**bad))
-    for ported in ({"refine_mode": "step"}, {"refine_mode": "tile"},
+    for ported in ({"storage_dtype": "bfloat16"}, {"storage_dtype": "split"},
+                   {"gather_dtype": "bfloat16"}, {"refine_mode": "step"},
+                   {"refine_mode": "tile"},
                    {"refine_mode": "region", "region_steps": 1},
                    {"window_kernel": "perkey"}):
         check_supported(SiftConfig(**ported))
+        jcfg = JConfig(**ported)
+        assert config_from_reference(dataclasses.asdict(jcfg)) == SiftConfig(**ported)
+    for fields, flags in (({}, (False, False)),
+                          ({"gather_dtype": "bfloat16"}, (True, False)),
+                          ({"storage_dtype": "split"}, (False, True)),
+                          ({"storage_dtype": "split", "gather_dtype": "bfloat16"},
+                           (False, True)),
+                          ({"storage_dtype": "bfloat16",
+                            "gather_dtype": "bfloat16"}, (False, False))):
+        cfg = SiftConfig(**fields)
+        assert (cfg.gather16, cfg.split) == flags, fields

@@ -67,7 +67,7 @@ def _octave0(dev, b=2, h=96, w=128):
     sh, sw = seed.shape[-2:]
     hp, wp = padded_dims(sh, sw)
     base = reflect_pad_image(seed, P, wp - sw - 2 * P, hp - sh - 2 * P)
-    g, d = octave_fused_plain(base, CFG)
+    g, d, _, _ = octave_fused_plain(base, CFG)
     return base.to(dev), g.to(dev), d.to(dev), (sh, sw)
 
 
@@ -76,9 +76,9 @@ def test_k1_bit_exact(dev):
         octave_fused, octave_fused_plain)
 
     base, _, _, _ = _octave0(dev)
-    g, d = octave_fused(base, CFG)
+    g, d, _, _ = octave_fused(base, CFG)
     torch.cuda.synchronize()
-    gp, dp = octave_fused_plain(base, CFG)
+    gp, dp, _, _ = octave_fused_plain(base, CFG)
     assert torch.equal(g, gp) and torch.equal(d, dp)
 
 
@@ -203,7 +203,7 @@ def test_k9_bit_exact(dev):
     assert torch.equal(g, gp) and torch.equal(d, dp)
     assert torch.equal(g, g2) and torch.equal(d, d2)
     # a chain of K9 levels is the K1 octave
-    g1, d1 = octave_fused(base, CFG)
+    g1, d1, _, _ = octave_fused(base, CFG)
     assert torch.equal(g[:CFG.scales_per_octave], g1[0]) and torch.equal(d, d1[0])
 
 
@@ -396,3 +396,134 @@ def test_modes_on_card_equal_default(dev):
         assert all(build.LAUNCHES.get(k) for k in kernels), build.LAUNCHES
         for key in want:
             assert torch.equal(got[key], want[key]), (kw, key)
+
+
+STORAGE = {"bfloat16": {"storage_dtype": "bfloat16"},
+           "split": {"storage_dtype": "split"},
+           "gather16": {"gather_dtype": "bfloat16"}}
+
+
+def test_storage_pyramid_forms_bit_exact(dev):
+    """K1 and K9 in each storage form, K2 and K4 on a bf16 DoG: bit-equal
+    to their plain versions, each counted under its form's name."""
+    from sift_features_tpu_torch.ops.extrema import find_candidates_words, newton_step
+    from sift_features_tpu_torch.ops.kernels import build
+    from sift_features_tpu_torch.ops.kernels.extrema import (
+        extrema_words, extrema_words_plain)
+    from sift_features_tpu_torch.ops.kernels.pyramid import (
+        build_octave_padded_batched, build_octave_padded_batched_plain,
+        octave_fused, octave_fused_plain)
+    from sift_features_tpu_torch.ops.kernels.refine import refine_step
+
+    base, _, _, (h, w) = _octave0(dev)
+    base16 = base.to(torch.bfloat16)
+    build.reset_launches()
+    for b, kw in ((base16, {}), (base, {"split": True}),
+                  (base, {"gather16": True})):
+        got = octave_fused(b, CFG, **kw)
+        got9 = build_octave_padded_batched(b, CFG, **kw)
+        torch.cuda.synchronize()
+        for a, p in zip(got + got9, octave_fused_plain(b, CFG, **kw)
+                        + build_octave_padded_batched_plain(b, CFG, **kw)):
+            assert (a is None and p is None) or torch.equal(a, p), kw
+    n_lv = CFG.scales_per_octave + 2
+    # gather16 copies levels 1..S: its deeper K9 levels are plain f32 ones
+    assert build.LAUNCHES == {"K1:bf16": 1, "K1:split": 1, "K1:g16": 1,
+                              "K9:bf16": n_lv, "K9:split": n_lv,
+                              "K9:g16": n_lv - 2, "K9": 2}
+    _, d16, _, _ = octave_fused(base16, CFG)
+    b = CFG.image_border
+    bounds = (P + b, P + h - b, P + b, P + w - b)
+    words = extrema_words(d16, bounds, CFG)
+    assert torch.equal(words, extrema_words_plain(d16, bounds, CFG))
+    s0, y0, x0, valid, _ = find_candidates_words(words, 512)
+    flat = d16.reshape(-1, *d16.shape[2:])
+    p = (torch.clamp(s0, 1, CFG.scales_per_octave)
+         + (torch.arange(2, device=dev) * n_lv)[:, None]).reshape(-1)
+    args = (flat, p, y0.reshape(-1), x0.reshape(-1), valid.reshape(-1), CFG)
+    rows = refine_step(*args)
+    torch.cuda.synchronize()
+    bits = lambda t: t.view(torch.int32)  # noqa: E731 (NaN-safe equality)
+    assert torch.equal(bits(rows), bits(newton_step(*args)))
+    assert int(valid.sum()) > 10
+    assert build.LAUNCHES["K2:bf16"] == 1 and build.LAUNCHES["K4:bf16"] == 1
+
+
+def test_storage_window_kernels_match_plain(dev):
+    """K5, K5′, K6, K6′, K8 and K7 on bf16 Gaussian levels against their
+    plain versions, with the f32 tests' tolerances."""
+    from sift_features_tpu_torch.ops.kernels import build
+    from sift_features_tpu_torch.ops.kernels import descriptor as k6
+    from sift_features_tpu_torch.ops.kernels import orientation as k5
+
+    c = _survivor_windows(dev)
+    g16 = c["gauss_flat"].to(torch.bfloat16)
+    count = torch.tensor(173, device=dev)
+    live = torch.arange(c["plane"].numel(), device=dev) < count
+    close = dict(rtol=1e-6, atol=1e-7)
+    build.reset_launches()
+    lanes = (c["plane"], c["y"], c["x"], c["kp_scale"])
+    tail = (c["h"], c["w"], P, CFG)
+    h1, a1, n1 = k5.orientation_hist_peaks(g16, *lanes, c["live"], *tail)
+    hp, ap, npk = k5.orientation_plain(g16, *lanes, c["live"], *tail)
+    torch.testing.assert_close(h1, hp, **close)
+    assert torch.equal(n1, npk)
+    h2 = k5.orientation_hist_prefix(g16, *lanes, count, *tail)[0]
+    torch.testing.assert_close(h2, k5.orientation_plain(g16, *lanes, live, *tail)[0],
+                               **close)
+    r3 = k5.bucket_radii_ori(CFG)[3]
+    h3 = k5.orientation_hist_perkey(g16, *lanes, count, *tail[:3], r3, CFG)
+    torch.testing.assert_close(h3, k5.orientation_raw_plain(
+        g16, *lanes, live, *tail[:3], CFG, r3), **close)
+    dl = (c["plane"], c["x"], c["y"], c["kp_scale"], c["angle"])
+    d1 = k6.descriptor_hist(g16, *dl, c["live"], *tail)
+    torch.testing.assert_close(d1, k6.descriptor_plain(g16, *dl, c["live"], *tail),
+                               **close)
+    d2 = k6.descriptor_hist_prefix(g16, *dl, count, *tail)
+    torch.testing.assert_close(d2, k6.descriptor_plain(g16, *dl, live, *tail),
+                               **close)
+    r6 = k6.bucket_radii(CFG)[3]
+    d3 = k6.descriptor_hist_perkey(g16, *dl, count, *tail[:3], r6, CFG)
+    torch.testing.assert_close(d3, k6.descriptor_plain(
+        g16, *dl, live, *tail[:3], CFG, r_max=r6), **close)
+    torch.cuda.synchronize()
+    assert sorted(build.LAUNCHES) == sorted(
+        ["K5:bf16", "K5′:bf16", "K8:bf16", "K6:bf16", "K6′:bf16", "K7:bf16"])
+    # the bf16 levels are read as such: not the f32 levels' histograms
+    assert not torch.equal(d1, k6.descriptor_hist(c["gauss_flat"], *dl, c["live"],
+                                                  *tail))
+
+
+def test_storage_modes_card_matches_cpu(dev):
+    """Each storage mode's extract_batch on the card against its CPU run,
+    with its kernel forms launched; the gather16 budget equal to its
+    truncated unbudgeted output."""
+    import dataclasses
+
+    from sift_features_tpu_torch.models import extractor as tx
+    from sift_features_tpu_torch.ops.kernels import build
+
+    imgs = smooth_images(1, 2, 96, 128)
+    need = {"bfloat16": ("K1:bf16", "K2:bf16", "K4:bf16", "K5:bf16", "K6:bf16"),
+            "split": ("K1:split", "K3", "K5:bf16", "K6:bf16"),
+            "gather16": ("K1:g16", "K3", "K5:bf16", "K6:bf16")}
+    for mode, fields in STORAGE.items():
+        cfg = dataclasses.replace(CFG, **fields)
+        build.reset_launches()
+        rc = tx.extract_batch(imgs, cfg, device=dev)
+        torch.cuda.synchronize()
+        assert all(build.LAUNCHES.get(k) for k in need[mode]), build.LAUNCHES
+        assert not build.LAUNCHES.get("K3") or mode != "bfloat16"
+        rh = tx.extract_batch(imgs, cfg, device="cpu")
+        for key in ("n_candidates", "n_survivors", "n_emitted", "valid"):
+            assert torch.equal(rc[key].cpu(), rh[key]), (mode, key)
+        v = rh["valid"]
+        assert int(v.sum()) > 100
+        torch.testing.assert_close(rc["kps"].cpu()[v], rh["kps"][v], rtol=0,
+                                   atol=1e-3)
+        rows_eq = (rc["desc"].cpu()[v] == rh["desc"][v]).all(1).float().mean()
+        assert float(rows_eq) >= 0.99, mode
+        if mode == "gather16":
+            rb = tx.extract_batch(imgs, cfg, features_limit=37, device=dev)
+            want = tx._truncate_result(rc, 37)
+            assert all(torch.equal(rb[k], want[k]) for k in want)

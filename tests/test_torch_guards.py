@@ -1,7 +1,7 @@
 """Cheap guards of the port's boundaries: it imports nothing of JAX or the
 JAX package, its entry points run on the card unless the caller asks for
-the CPU, its kernel wrappers never fall back silently, and the parts not
-ported yet say so."""
+the CPU, its kernel wrappers never fall back silently, and unknown modes
+raise while every mode of the JAX config runs."""
 
 import ast
 import pathlib
@@ -13,6 +13,8 @@ import torch
 import sift_features_tpu_torch as port
 from sift_features_tpu_torch.config import DEFAULT_CONFIG as CFG
 from sift_features_tpu_torch.models import extractor
+
+from test_torch_gpu import one_torch_thread, smooth_images  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -59,22 +61,38 @@ def test_wrappers_never_fall_back():
         octave_fused(torch.empty((1, 256, 256), device="meta"), CFG)
 
 
-def test_unported_paths_raise():
-    """The storage modes still raise naming ROADMAP; the ported refine and
-    window modes run."""
+def test_unported_paths_raise(one_torch_thread):
+    """Unknown mode names raise ValueError at the entry points. Every
+    storage mode runs through extract_batch, with and without
+    features_limit; the entry points that ignore the storage modes, as the
+    JAX package's do (_extract_single, precompute and
+    extract_with_precomputed), give the f32 result in each."""
     import dataclasses
 
-    img = np.zeros((1, 32, 32), np.uint8)
-    for field, value in (("storage_dtype", "bfloat16"),
-                         ("storage_dtype", "split"),
-                         ("gather_dtype", "bfloat16")):
+    img = smooth_images(3, 1, 32, 32)
+    for field, value in (("storage_dtype", "float16"),
+                         ("gather_dtype", "split"), ("refine_mode", "walks")):
         cfg = dataclasses.replace(CFG, **{field: value})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError):
             extractor.extract_batch(img, cfg, features_limit=10, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError):
             extractor.precompute(img, cfg, device="cpu")
-    for field, value in (("window_kernel", "perkey"), ("refine_mode", "tile"),
-                         ("refine_mode", "region")):
-        octs, dogs = extractor.precompute(
-            img, dataclasses.replace(CFG, **{field: value}), device="cpu")
-        assert len(octs) == len(dogs) > 0
+    n_oct = extractor._n_octaves(32, 32, CFG)
+    frame = torch.from_numpy(img[0])
+    one32 = extractor._extract_single(frame, n_oct, CFG)
+    sp32 = extractor.extract_with_precomputed(
+        *extractor.precompute(img, CFG, device="cpu"), CFG, device="cpu")
+    assert int(one32["valid"].sum()) > 0
+    for fields in ({"storage_dtype": "bfloat16"}, {"storage_dtype": "split"},
+                   {"gather_dtype": "bfloat16"}):
+        cfg = dataclasses.replace(CFG, **fields)
+        full = extractor.extract_batch(img, cfg, device="cpu")
+        lim = extractor.extract_batch(img, cfg, features_limit=10, device="cpu")
+        want = extractor._truncate_result(full, 10)
+        assert all(torch.equal(lim[k], want[k]) for k in want), fields
+        one = extractor._extract_single(frame, n_oct, cfg)
+        assert all(torch.equal(one[k], one32[k]) for k in one32), fields
+        octs, dogs = extractor.precompute(img, cfg, device="cpu")
+        assert octs[0].dtype == dogs[0].dtype == torch.float32
+        sp = extractor.extract_with_precomputed(octs, dogs, cfg, device="cpu")
+        assert all(torch.equal(sp[k], sp32[k]) for k in sp32), fields

@@ -63,7 +63,7 @@ def test_k1_plain_matches_pallas_interior(octave_case):
     base_j, base_t, (h, w) = octave_case
     g_j, d_j, _, _ = build_octave_fused(jnp.asarray(base_j), JCFG,
                                         interpret=True)
-    g_t, d_t = tk.octave_fused_plain(base_t, CFG)
+    g_t, d_t, _, _ = tk.octave_fused_plain(base_t, CFG)
     assert g_t.shape == g_j.shape and d_t.shape == d_j.shape
     sl = (slice(None), slice(None), slice(P, P + h), slice(P, P + w))
     # the JAX tests' own tolerances for the kernel vs the tap-sum path

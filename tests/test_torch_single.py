@@ -83,7 +83,7 @@ def test_k9_plain_matches_pallas():
     np.testing.assert_allclose(d.numpy()[inner], np.asarray(dj)[inner], rtol=0,
                                atol=6e-7)
     # and a chain of K9 levels is the K1 octave, bit for bit
-    g1, d1 = tk9.octave_fused(base[None], CFG)
+    g1, d1, _, _ = tk9.octave_fused(base[None], CFG)
     assert torch.equal(g[:3], g1[0]) and torch.equal(d, d1[0])
 
 
