@@ -11,9 +11,12 @@ Phases (any failure stops the script with a non-zero exit):
      the inputs the main path gives it at octave 0 of a 1080p B=4 batch
      (captured from a run of the entry point), two launches compared byte
      for byte, per-launch time, plain-version time, the bound and, where one
-     PyTorch call computes the same function, that call's time;
+     PyTorch call computes the same function, that call's time; K1 is
+     held bit-exact at every fused octave's base (its tiles' edge cases
+     differ by shape), timed at octave 0;
      K2', K5', K6' and K9 are held the same way at the octave-0 inputs of
-     the per-frame path (_extract_single on frame 0); K10 and K11 at K3's
+     the per-frame path (_extract_single on frame 0), K9 at every octave
+     that path builds with it; K10 and K11 at K3's
      candidates (K10 also against K4's rows, K11's merged rows against
      K3's), K8 and K7 on K5's and K6's lanes, one launch per scale bucket
      (also against K5's and K6's raw rows);
@@ -41,7 +44,8 @@ Phases (any failure stops the script with a non-zero exit):
       byte-identical to the default budget output;
   11. storage: storage_dtype "bfloat16" and "split" and gather_dtype
       "bfloat16". Each new kernel form against its plain version at the
-      octave-0 inputs of its path (K1, K9, K2 and K4 forms bit-exact, the
+      octave-0 inputs of its path (K1 forms at every fused octave; K1, K9,
+      K2 and K4 forms bit-exact, the
       window kernels on bf16 levels within 1e-4); the split and gather16 K1
       against the f32 K1 bit for bit. Each mode's main step: its K1 form
       launched (bf16: K4 and not K3), split and gather16 with the f32 step's
@@ -71,7 +75,11 @@ N_MATCH = 1024
 BUDGET = 2048
 SMALL = (240, 320)
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
-H100_F32_OPS_PER_S = 67e12     # f32 outside the tensor cores
+# f32 instructions per second outside the tensor cores: the data sheet's
+# 67 TFLOP/s counts an FMA as two operations, and every kernel is built with
+# --fmad=false, so each f32 multiply or add takes a whole FMA issue slot.
+# The operation counts below are such instructions.
+H100_F32_INSTR_PER_S = 33.5e12
 # the extractor's names of the kernel wrappers of the main path
 WRAPPERS = {"K1": "octave_fused", "K2": "extrema_words", "K3": "refine_walk",
             "K5": "orientation_hist_peaks", "K6": "descriptor_hist"}
@@ -126,10 +134,11 @@ def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def capture_first_calls(torch, wrappers, run):
+def capture_first_calls(torch, wrappers, run, every=()):
     """Run run() once with each wrapper in wrappers {kernel: (module,
     attribute)} wrapped, keeping the arguments of each one's first call
-    (octave 0)."""
+    (octave 0); for the kernels in `every`, also the list of every call's
+    arguments (all octaves), under "<kernel>*"."""
     import importlib
 
     captured, saved = {}, []
@@ -140,6 +149,8 @@ def capture_first_calls(torch, wrappers, run):
 
         def rec(*args, _k=k, _fn=fn, **kw):
             captured.setdefault(_k, (args, kw))
+            if _k in every:
+                captured.setdefault(_k + "*", []).append((args, kw))
             return _fn(*args, **kw)
         setattr(mod, attr, rec)
     try:
@@ -158,12 +169,13 @@ def capture_octave0(torch, extractor, frames, dev):
     mod = "sift_features_tpu_torch.models.extractor"
     cap = capture_first_calls(
         torch, {k: (mod, a) for k, a in WRAPPERS.items()},
-        lambda: extractor.extract_batch(frames, device=dev))
+        lambda: extractor.extract_batch(frames, device=dev), every=("K1",))
     img = torch.as_tensor(frames[0], device=dev)
     n_oct = extractor._n_octaves(H, W, extractor.DEFAULT_CONFIG)
     cap.update(capture_first_calls(
         torch, SINGLE_WRAPPERS,
-        lambda: extractor._extract_single(img, n_oct, extractor.DEFAULT_CONFIG)))
+        lambda: extractor._extract_single(img, n_oct, extractor.DEFAULT_CONFIG),
+        every=("K9",)))
     return cap
 
 
@@ -194,7 +206,7 @@ def window_samples(torch, scale, live, factor, r_max):
 
 def bound(nbytes: float, ops: float):
     t_b = nbytes / H100_BYTES_PER_S * 1e3
-    t_o = ops / H100_F32_OPS_PER_S * 1e3
+    t_o = ops / H100_F32_INSTR_PER_S * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -250,10 +262,13 @@ def check_kernels(torch, cap, cfg, dev):
     rows = {}
     record = make_record(torch, rows)
 
-    # K1: octave 0 blur chain + DoG
+    # K1: the blur chain + DoG of every fused octave (the tiles' edge cases
+    # differ by shape) against the plain version; times at octave 0
     (base, _), _ = cap["K1"]
-    outs = [k1.octave_fused(base, cfg)[:2] for _ in range(2)]
-    plain = k1.octave_fused_plain(base, cfg)[:2]
+    bases = [a[0] for a, _ in cap["K1*"]]
+    outs = [[t for b in bases for t in k1.octave_fused(b, cfg)[:2]]
+            for _ in range(2)]
+    plain = [t for b in bases for t in k1.octave_fused_plain(b, cfg)[:2]]
     nb, hp, wp = base.shape
     taps = k1.octave_taps(cfg)
     px = nb * hp * wp
@@ -267,10 +282,10 @@ def check_kernels(torch, cap, cfg, dev):
     torch.backends.cudnn.allow_tf32 = False
     conv = torch.nn.functional.conv2d
     lib_ms = time_ms(torch, lambda: conv(base[:, None], wgt, padding=r), 3)
-    record("K1", [outs[0][0], outs[0][1]], [outs[1][0], outs[1][1]],
-           [plain[0], plain[1]], True, 0.0, ms, plain_ms, k1_bytes, k1_ops,
-           lib_ms, f"; library conv2d {lib_ms:.3f} ms")
-    del outs, plain
+    record("K1", outs[0], outs[1], plain, True, 0.0, ms, plain_ms, k1_bytes,
+           k1_ops, lib_ms, f"; library conv2d {lib_ms:.3f} ms; bit-exact at "
+           f"{len(bases)} octaves {[tuple(b.shape[1:]) for b in bases]}")
+    del outs, plain, bases
 
     # K2: extremum words
     (dog, bounds, _), _ = cap["K2"]
@@ -337,11 +352,14 @@ def check_kernels(torch, cap, cfg, dev):
            note=f"; {n_live} live of {live.numel()} lanes")
     del outs, plain
 
-    # K9: the per-frame octave-0 chain, one launch per level; times and
-    # bound per launch (the mean over the octave's levels)
+    # K9: the per-frame chain of every octave that takes it, one launch per
+    # level; times and bound per launch at octave 0 (the mean over the
+    # octave's levels)
     (base, _), _ = cap["K9"]
-    outs = [k1.build_octave_padded(base, cfg) for _ in range(2)]
-    plain = k1.build_octave_padded_plain(base, cfg)
+    bases = [a[0] for a, _ in cap["K9*"]]
+    outs = [[t for b in bases for t in k1.build_octave_padded(b, cfg)]
+            for _ in range(2)]
+    plain = [t for b in bases for t in k1.build_octave_padded_plain(b, cfg)]
     n_lv = len(taps)
     px = base.numel()
     ms = time_ms(torch, lambda: k1.build_octave_padded(base, cfg), 5) / n_lv
@@ -352,12 +370,12 @@ def check_kernels(torch, cap, cfg, dev):
     r0 = len(t0) // 2
     w1 = torch.from_numpy(np.outer(t0, t0).astype(np.float32)[None, None]).to(dev)
     lib_ms = time_ms(torch, lambda: conv(base[None, None], w1, padding=r0), 5)
-    record("K9", list(outs[0]), list(outs[1]), list(plain), True, 0.0, ms,
+    record("K9", outs[0], outs[1], plain, True, 0.0, ms,
            plain_ms, 4 * px * 3, px * (sum(4 * len(t) for t in taps)
                                        + len(taps)) / n_lv,
            lib_ms, f" (per level, {n_lv} levels); library conv2d of level 1 "
-           f"{lib_ms:.3f} ms")
-    del outs, plain
+           f"{lib_ms:.3f} ms; bit-exact at {len(bases)} octaves")
+    del outs, plain, bases
 
     # K2': the per-frame octave-0 words (the K2 kernel, one frame)
     (dog1, bounds1, _), _ = cap["K2′"]
@@ -884,12 +902,14 @@ def check_storage_kernels(torch, extractor, frames, cfgs, cfg, dev, rows):
         "K4": (KMOD + "refine", "refine_step"),
         "K5": (EXTRACTOR, "orientation_hist_peaks"),
         "K6": (EXTRACTOR, "descriptor_hist")},
-        lambda: extractor.extract_batch(frames, cfgs["bfloat16"], device=dev))
+        lambda: extractor.extract_batch(frames, cfgs["bfloat16"], device=dev),
+        every=("K1",))
     cap_g = capture_first_calls(torch, {
         "K1": (EXTRACTOR, "octave_fused"),
         "K6′": (KMOD + "descriptor", "descriptor_hist_prefix")},
         lambda: extractor.extract_batch(frames, cfgs["gather16"],
-                                        features_limit=BUDGET, device=dev))
+                                        features_limit=BUDGET, device=dev),
+        every=("K1",))
     cap_p = capture_first_calls(torch, {
         "K8": (KMOD + "orientation", "orientation_hist_perkey"),
         "K7": (KMOD + "descriptor", "descriptor_hist_perkey")},
@@ -900,42 +920,49 @@ def check_storage_kernels(torch, extractor, frames, cfgs, cfg, dev, rows):
     if base16.dtype != bf16 or base32.dtype != torch.float32:
         raise SystemExit("chip_smoke: storage bases of the wrong type")
 
-    # K1 forms: bit-exact against the plain version; split and gather16
-    # against the f32 K1 on the same base, bit for bit
+    # K1 forms: bit-exact against the plain version at every fused octave;
+    # split and gather16 against the f32 K1 on the same bases, bit for bit.
+    # Times at octave 0
+    bases16 = [a[0] for a, _ in cap["K1*"]]
+    bases32 = [a[0] for a, _ in cap_g["K1*"]]
     taps = k1.octave_taps(cfg)
     px = base32.numel()
     k1_ops = px * (sum(4 * len(t) for t in taps) + len(taps))
     wgt, r = composed_kernels(torch, taps, dev)
     conv = torch.nn.functional.conv2d
     lib16 = time_ms(torch, lambda: conv(base16[:, None], wgt.to(bf16), padding=r), 2)
-    g32, d32, _, _ = k1.octave_fused(base32, cfg)
-    for name, base, kw in (("K1:bf16", base16, {}),
-                           ("K1:split", base32, {"split": True}),
-                           ("K1:g16", base32, {"gather16": True})):
-        res = [k1.octave_fused(base, cfg, **kw) for _ in range(2)]
-        plain = k1.octave_fused_plain(base, cfg, **kw)
-        keep = [i for i, t in enumerate(plain) if t is not None]
+    f32_k1 = [k1.octave_fused(b, cfg)[:2] for b in bases32]
+    for name, bases, kw in (("K1:bf16", bases16, {}),
+                            ("K1:split", bases32, {"split": True}),
+                            ("K1:g16", bases32, {"gather16": True})):
+        base = bases[0]
+        res = [[k1.octave_fused(b, cfg, **kw) for b in bases] for _ in range(2)]
+        plain = [k1.octave_fused_plain(b, cfg, **kw) for b in bases]
+        keep = [i for i, t in enumerate(plain[0]) if t is not None]
         ms = time_ms(torch, lambda: k1.octave_fused(base, cfg, **kw), 10)
         plain_ms = time_ms(torch, lambda: k1.octave_fused_plain(base, cfg, **kw), 2)
-        g, d, g16, l3 = res[0]
         note = ""
-        if name == "K1:split":
-            if not (torch.equal(d, d32) and torch.equal(l3, g32[:, S - 1])
-                    and torch.equal(g, g32.to(bf16))):
-                raise SystemExit("chip_smoke: split K1 differs from the f32 K1")
-            note = "; DoG and l3 equal the f32 K1's, gauss its bf16 rounding"
-        if name == "K1:g16":
-            if not (torch.equal(g, g32) and torch.equal(d, d32)
-                    and torch.equal(g16, g32.to(bf16))):
-                raise SystemExit("chip_smoke: gather16 K1 differs from the f32 K1")
-            note = "; gauss and DoG equal the f32 K1's, g16 its bf16 rounding"
+        for (g, d, g16, l3), (g32, d32) in zip(res[0], f32_k1):
+            if name == "K1:split":
+                if not (torch.equal(d, d32) and torch.equal(l3, g32[:, S - 1])
+                        and torch.equal(g, g32.to(bf16))):
+                    raise SystemExit("chip_smoke: split K1 differs from the f32 K1")
+                note = "; DoG and l3 equal the f32 K1's, gauss its bf16 rounding"
+            if name == "K1:g16":
+                if not (torch.equal(g, g32) and torch.equal(d, d32)
+                        and torch.equal(g16, g32.to(bf16))):
+                    raise SystemExit("chip_smoke: gather16 K1 differs from the "
+                                     "f32 K1")
+                note = "; gauss and DoG equal the f32 K1's, g16 its bf16 rounding"
         lib = lib16 if name == "K1:bf16" else rows["K1"]["library_ms"]
-        record(name, [res[0][i] for i in keep], [res[1][i] for i in keep],
-               [plain[i] for i in keep], True, 0.0, ms, plain_ms,
-               nbytes_of(base, *res[0]), k1_ops, lib,
-               f"{note}; library conv2d ({base.dtype}) {lib:.3f} ms")
+        record(name, [r[i] for r in res[0] for i in keep],
+               [r[i] for r in res[1] for i in keep],
+               [p[i] for p in plain for i in keep], True, 0.0, ms, plain_ms,
+               nbytes_of(base, *res[0][0]), k1_ops, lib,
+               f"{note}; bit-exact at {len(bases)} octaves; library conv2d "
+               f"({base.dtype}) {lib:.3f} ms")
         del res, plain
-    del g32, d32
+    del f32_k1
 
     # K9 forms: build_octave_padded_batched, which no entry point calls;
     # per level, as K9

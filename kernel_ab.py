@@ -1,0 +1,141 @@
+#!/usr/bin/env python3
+"""Kernel times of several checkouts of the port, in turns, on one card.
+
+    python3 kernel_ab.py [--out FILE.json] PARENT_DIR . . PARENT_DIR
+
+Runs, for each directory in the order given and each in a process of its
+own (so each imports its own `sift_features_tpu_torch` and builds its own
+kernels), that checkout's `chip_smoke.py` kernel phases on the 1080p B=4
+batch: phase 3 (every kernel against its plain version, per-launch times,
+bounds) and phase 11a (the storage forms), then phase 4's per-kernel
+device time inside one main step (CUDA events around each wrapper call)
+and the peak memory of each stage of `extract_batch` in the default and
+the storage modes. Prints each run's lines and, at the end, one table of
+per-launch times by kernel and run; with --out, writes every number to
+that JSON file. Comparing checkouts within one run, parent / change /
+change / parent, keeps the card and its power limit the same.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+
+def one(tree: str) -> dict:
+    """The kernel phases of the checkout at `tree`, in this process."""
+    tree = os.path.abspath(tree)
+    os.chdir(tree)
+    sys.path.insert(0, tree)
+    import dataclasses
+
+    import torch
+
+    import chip_smoke as cs
+    from sift_features_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from sift_features_tpu_torch.models import extractor
+    from sift_features_tpu_torch.ops.kernels import build
+    from sift_features_tpu_torch.ops.matcher import match_dense
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: no CUDA device")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    logs = build.build_all()
+    build_s = time.perf_counter() - t0
+    ptxas = [f"{src}: {ln.strip()}" for src, log in logs.items()
+             for ln in log.splitlines()
+             if src in ("pyramid", "descriptor") and (
+                 "registers" in ln or "spill" in ln or "Compiling entry" in ln)]
+    frames = cs.make_frames(cs.B)
+    cap = cs.capture_octave0(torch, extractor, frames, dev)
+    rows = cs.check_kernels(torch, cap, cfg, dev)
+    del cap
+    torch.cuda.empty_cache()
+    cfgs = {m: dataclasses.replace(cfg, **f) for m, (f, _, _) in cs.STORAGE.items()}
+    cs.check_storage_kernels(torch, extractor, frames, cfgs, cfg, dev, rows)
+    torch.cuda.empty_cache()
+
+    def step(c=cfg):
+        return cs.main_path_step(torch, extractor.extract_batch, match_dense,
+                                 frames, c, dev)
+
+    # device time of each main-path wrapper inside one main step
+    step()
+    torch.cuda.synchronize()
+    events = {}
+    saved = {a: getattr(extractor, a) for a in cs.WRAPPERS.values()}
+    for k, attr in cs.WRAPPERS.items():
+        def timed(*a, _k=k, _fn=saved[attr], **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = _fn(*a, **kw)
+            e1.record()
+            events.setdefault(_k, []).append((e0, e1))
+            return out
+        setattr(extractor, attr, timed)
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        for attr, fn in saved.items():
+            setattr(extractor, attr, fn)
+    in_step = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in events.items()}
+    stage_peaks = {"f32": cs.stage_peaks(torch, extractor, step)}
+    for mode, c in cfgs.items():
+        stage_peaks[mode] = cs.stage_peaks(torch, extractor, lambda c=c: step(c))
+    return {"tree": tree, "card": cs.nvidia_smi_line(),
+            "device": torch.cuda.get_device_name(0), "build_s": build_s,
+            "ptxas": ptxas, "rows": rows, "kernel_ms_in_step": in_step,
+            "launches_in_step": {k: len(v) for k, v in events.items()},
+            "stage_peak_gb": stage_peaks}
+
+
+def main(argv) -> int:
+    if len(argv) >= 2 and argv[0] == "--one":
+        print(json.dumps(one(argv[1]), ensure_ascii=False), flush=True)
+        return 0
+    out_path = None
+    if argv[:1] == ["--out"]:
+        out_path, argv = argv[1], argv[2:]
+    if not argv:
+        print(__doc__, file=sys.stderr)
+        return 2
+    runs = []
+    for i, tree in enumerate(argv):
+        print(f"[kernel_ab] run {i}: {tree}", flush=True)
+        p = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree],
+                           capture_output=True, text=True, timeout=1500)
+        out = p.stdout.strip().splitlines()
+        for ln in out[:-1]:
+            print(f"[run {i}] {ln}", flush=True)
+        if p.returncode != 0:
+            print(p.stderr[-6000:], file=sys.stderr)
+            raise SystemExit(f"kernel_ab: run {i} ({tree}) failed")
+        runs.append(json.loads(out[-1]))
+    if out_path:
+        os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+        with open(out_path, "w") as f:
+            json.dump(runs, f, ensure_ascii=False, indent=1)
+    names = [k for k in runs[-1]["rows"]]
+    print(f"[kernel_ab] {runs[0]['card']}; ms per launch at octave 0, runs "
+          f"{' / '.join(os.path.relpath(r['tree']) for r in runs)}")
+    for k in names:
+        ms = " / ".join(f"{r['rows'][k]['ms']:.4f}" if k in r["rows"] else "-"
+                        for r in runs)
+        bd = " / ".join(f"{r['rows'][k]['bound_ms']:.4f} ({r['rows'][k]['bound_by']})"
+                        if k in r["rows"] else "-" for r in runs)
+        print(f"[kernel_ab] {k:9s} {ms}  bound {bd}")
+    for k in runs[-1]["kernel_ms_in_step"]:
+        ms = " / ".join(f"{r['kernel_ms_in_step'].get(k, 0):.3f}" for r in runs)
+        print(f"[kernel_ab] in one main step: {k} {ms} ms")
+    for r in runs:
+        print(f"[kernel_ab] {os.path.relpath(r['tree'])}: K1-stage peak GB "
+              f"{ {m: round(v['octave_fused'], 3) for m, v in r['stage_peak_gb'].items()} }")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

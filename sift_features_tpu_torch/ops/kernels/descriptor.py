@@ -11,7 +11,10 @@ here is that dispatcher's counterpart. Both are one `_kernel` on the TPU and
 one CUDA kernel here. One launch serves every scale; the window bound
 R_DESC_MAX = 39 is asserted in the kernel (the radius is at most 38 on the
 main path). The CUDA kernel is
-csrc/descriptor.cu; its note gives the bound and the design.
+csrc/descriptor.cu; its note gives the bound (the per-sample operations,
+~100 f32 instructions per in-radius sample) and the design: all threads of
+a lane's block compute the per-sample records of a chunk of window rows,
+then one thread per row applies them in the order below.
 `finalize_descriptor` (ops/descriptor.py) turns the raw histograms into u8.
 
 K7 (`descriptor_hist_perkey`, count prefix) replaces

@@ -9,10 +9,13 @@ level-S plane `l3` (split). K9 (`octave_level`) replaces
 pyramid_kernel.py:_call_level, driven level by level by
 `build_octave_padded` (the per-frame path, f32) and by
 `build_octave_padded_batched` (its bf16, split and gather16 forms, which no
-entry point reaches, as in the JAX package). The CUDA kernels are
-csrc/pyramid.cu; its note gives the bound on the H100 (memory: ~1.36 GB
-must move at octave 0 of a 1080p B=4 batch in f32) and what this first
-design moves instead.
+entry point reaches, as in the JAX package). Both launch one fused level
+kernel per level (csrc/pyramid.cu): a block stages its tile of the level
+before with the halo in shared memory, runs the H pass and then the V pass
+there, and stores the level and its DoG; `level_plan` sizes its tiles. The
+note in the source gives the bound on the H100 (at octave 0 of a 1080p B=4
+batch in f32, 1.36 GB to move and 13.4 G unfused f32 operations, 0.41 ms
+each) and what the design moves.
 
 Storage rule of both: the blur arithmetic is f32. K1 chains its levels in
 f32 and rounds only what it stores; K9 reads each level back from its
@@ -41,7 +44,30 @@ from ...config import SiftConfig
 from ..gaussian import cv_ksize, gaussian_kernel, reflect101_pad, tap_sum
 from . import build
 
-MAX_TAPS = 64   # csrc/pyramid.cu
+MAX_TAPS = 63            # csrc/pyramid.cu: radius at most 31
+TILE_W = 128             # output columns of a level block
+ROWS_PER_THREAD = 8      # V-pass outputs of a thread (the tile height's unit)
+SMEM_LIMIT = 232448      # shared memory a block may use on the H100
+
+
+def level_plan(ksize: int) -> tuple[int, int]:
+    """(tile height, shared-memory bytes) of one level launch of K1 / K9
+    for `ksize` taps: the tallest tile of 64, 32, 16 or 8 rows whose staged
+    level (tile + 2r halo rows, TILE_W + 2 align4(r) columns) and H pass
+    (tile + 2r rows, TILE_W columns), f32, fit in half an SM's shared
+    memory, so that two blocks share an SM (csrc/pyramid.cu:level_smem).
+    Raises for a tap count the kernel does not take (even, or above
+    MAX_TAPS)."""
+    if ksize < 1 or ksize % 2 == 0 or ksize > MAX_TAPS:
+        raise ValueError(f"{ksize} taps: the level kernel takes an odd count "
+                         f"of 1 to {MAX_TAPS} taps")
+    r = ksize // 2
+    ra = -(-r // 4) * 4
+    for tile_h in (64, 32, 16, ROWS_PER_THREAD):
+        smem = (tile_h + 2 * r) * (2 * TILE_W + 2 * ra) * 4
+        if smem <= SMEM_LIMIT // 2:
+            return tile_h, smem
+    raise AssertionError("unreachable: 8 rows fit at the largest radius")
 
 
 def reflect_pad_image(img: torch.Tensor, pad: int, extra_right: int,
@@ -135,12 +161,12 @@ def octave_fused(base: torch.Tensor, cfg: SiftConfig, gather16: bool = False,
     b, hp, wp = base.shape
     taps = octave_taps(cfg)
     n_levels, n_keep = len(taps), cfg.scales_per_octave
-    if max(len(t) for t in taps) > MAX_TAPS:
-        raise ValueError(f"octave_fused: more than {MAX_TAPS} taps")
     taps_arr = (ctypes.c_float * (n_levels * MAX_TAPS))()
     ksizes = (ctypes.c_int * n_levels)()
+    tile_hs = (ctypes.c_int * n_levels)()
     for lv, t in enumerate(taps):
         ksizes[lv] = len(t)
+        tile_hs[lv] = level_plan(len(t))[0]
         for j, v in enumerate(t):
             taps_arr[lv * MAX_TAPS + j] = float(v)
     g_dtype, d_dtype = storage_dtypes(base.dtype, split)
@@ -155,19 +181,18 @@ def octave_fused(base: torch.Tensor, cfg: SiftConfig, gather16: bool = False,
     # else two used in turn (csrc/pyramid.cu)
     n_scratch = 2 if g_dtype == BF16 else 1
     scratch = torch.empty((n_scratch, b, hp, wp), **f32)
-    tmp = torch.empty((b, hp, wp), **f32)
     fn = build.bind("pyramid", "sift_octave_fused",
                     [ctypes.c_void_p, ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
-                    + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5
-                    + [ctypes.c_void_p] * 3)
+                    + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4)
     none = ctypes.c_void_p(None)
     rc = fn(build.ptr(base), base_t, build.ptr(gauss), build.DTYPE_CODE[g_dtype],
             build.ptr(dog), build.DTYPE_CODE[d_dtype],
             none if g16 is None else build.ptr(g16),
             none if l3 is None else build.ptr(l3), build.ptr(scratch),
-            n_scratch, build.ptr(tmp), b, hp, wp, n_keep, n_levels,
+            n_scratch, b, hp, wp, n_keep, n_levels,
             ctypes.cast(taps_arr, ctypes.c_void_p),
-            ctypes.cast(ksizes, ctypes.c_void_p), build.stream_ptr(base))
+            ctypes.cast(ksizes, ctypes.c_void_p),
+            ctypes.cast(tile_hs, ctypes.c_void_p), build.stream_ptr(base))
     name = storage_form("K1", g_dtype, d_dtype, gather16)
     build.check(rc, f"{name} octave_fused")
     build.count_launch(name)
@@ -198,29 +223,27 @@ def octave_level(gauss: torch.Tensor, dog: torch.Tensor, k: int,
         return
     whole = [t for t in (gauss, dog, g16, base) if t is not None]
     build.require_cuda("octave_level", *whole)
-    if len(taps) > MAX_TAPS:
-        raise ValueError(f"octave_level: more than {MAX_TAPS} taps")
+    tile_h = level_plan(len(taps))[0]
     if g16 is not None and g16.dtype != BF16:
         raise ValueError("octave_level: g16 must be bfloat16")
     b, _, hp, wp = gauss.shape
     plane = hp * wp
     src_fs = plane if k == 0 else gauss.stride(0)
     taps_arr = (ctypes.c_float * len(taps))(*(float(v) for v in taps))
-    tmp = torch.empty((b, hp, wp), dtype=torch.float32, device=gauss.device)
     fn = build.bind("pyramid", "sift_octave_level",
                     [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong] * 2
                     + [ctypes.c_void_p, ctypes.c_longlong]
                     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong]
-                    + [ctypes.c_void_p] + [ctypes.c_int] * 3
-                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+                    + [ctypes.c_int] * 3
+                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     rc = fn(build.ptr(src), build.dtype_code("octave_level", src), src_fs,
             build.ptr(gauss[:, k]), build.dtype_code("octave_level", gauss),
             gauss.stride(0),
             ctypes.c_void_p(None) if g16 is None else build.ptr(g16[:, k]),
             0 if g16 is None else g16.stride(0),
             build.ptr(dog[:, k]), build.dtype_code("octave_level", dog),
-            dog.stride(0), build.ptr(tmp), b, hp, wp,
-            ctypes.cast(taps_arr, ctypes.c_void_p), len(taps),
+            dog.stride(0), b, hp, wp,
+            ctypes.cast(taps_arr, ctypes.c_void_p), len(taps), tile_h,
             build.stream_ptr(gauss))
     name = storage_form("K9", gauss.dtype, dog.dtype, g16 is not None)
     build.check(rc, f"{name} octave_level")

@@ -82,6 +82,55 @@ def test_k1_bit_exact(dev):
     assert torch.equal(g, gp) and torch.equal(d, dp)
 
 
+FORMS = ({}, {"bf16": True}, {"split": True}, {"gather16": True})
+
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_k1_k9_partial_tiles_bit_exact(dev, b):
+    """K1 and a K9 chain in every storage form on planes that leave partial
+    tiles on both axes (128-column tiles, 64-row tiles at the default
+    taps), down to a plane shorter than one tile plus its halo; two
+    launches byte-identical."""
+    from sift_features_tpu_torch.ops.kernels.pyramid import (
+        build_octave_padded_batched, build_octave_padded_batched_plain,
+        octave_fused, octave_fused_plain)
+
+    rng = np.random.RandomState(7)
+    for hp, wp in ((72, 200), (136, 300), (200, 129), (40, 60)):
+        base = torch.as_tensor(rng.rand(b, hp, wp).astype(np.float32) * 255,
+                               device=dev)
+        for form in FORMS:
+            kw = {k: v for k, v in form.items() if k != "bf16"}
+            x = base.to(torch.bfloat16) if form.get("bf16") else base
+            for fn, plain in ((octave_fused, octave_fused_plain),
+                              (build_octave_padded_batched,
+                               build_octave_padded_batched_plain)):
+                got, again = fn(x, CFG, **kw), fn(x, CFG, **kw)
+                torch.cuda.synchronize()
+                for a, a2, p in zip(got, again, plain(x, CFG, **kw)):
+                    assert (a is None and p is None) or (
+                        torch.equal(a, p) and torch.equal(a, a2)), (hp, wp, form)
+
+
+def test_k1_other_radii_bit_exact(dev):
+    """A configuration whose radii are not the default octave's runs the
+    level kernel with run-time tap loops; bit-exact as well."""
+    import dataclasses
+
+    from sift_features_tpu_torch.ops.kernels.pyramid import (
+        octave_fused, octave_fused_plain, octave_taps)
+
+    cfg = dataclasses.replace(CFG, scales_per_octave=2)
+    assert {len(t) for t in octave_taps(cfg)} - {11, 13, 17, 21, 27}
+    base = torch.as_tensor(np.random.RandomState(8).rand(2, 136, 300)
+                           .astype(np.float32), device=dev)
+    for x in (base, base.to(torch.bfloat16)):
+        got = octave_fused(x, cfg)
+        torch.cuda.synchronize()
+        for a, p in zip(got, octave_fused_plain(x, cfg)):
+            assert (a is None and p is None) or torch.equal(a, p)
+
+
 def test_k2_bit_exact(dev):
     from sift_features_tpu_torch.ops.kernels.extrema import (
         extrema_words, extrema_words_plain)
@@ -257,6 +306,45 @@ def test_k6_prefix_matches_plain(dev):
     torch.testing.assert_close(d1, descriptor_plain(*args, live, *tail),
                                rtol=1e-6, atol=1e-7)
     assert not d1[173:].any()
+
+
+def test_k6_edge_lanes_match_plain(dev):
+    """K6 and K6′ with dead lanes, count 0 and window radii at both ends of
+    the main path's 17-38, on f32 and bf16 levels; two launches identical."""
+    from sift_features_tpu_torch.ops.kernels.descriptor import (
+        descriptor_hist, descriptor_hist_prefix, descriptor_plain)
+    from sift_features_tpu_torch.ops.util import round_half_away
+
+    c = _survivor_windows(dev)
+    n = c["plane"].numel()
+    L = CFG.scales_per_octave
+    scale = c["kp_scale"].clone()
+    plane = c["plane"].clone()
+    # radius 17 on level 1, radius 38 on level 3
+    scale[:20], plane[:20] = 1.6, plane[:20] - plane[:20] % L
+    scale[20:40], plane[20:40] = 3.59, plane[20:40] - plane[20:40] % L + 2
+    factor = CFG.lambda_descr * np.sqrt(2.0) * (CFG.descriptor_n_histograms + 1) / 2
+    radii = round_half_away(scale[:40] * np.float32(factor))
+    assert int(radii.min()) == 17 and int(radii.max()) == 38
+    live = c["live"].clone()
+    live[40:60] = False
+    for g in (c["gauss_flat"], c["gauss_flat"].to(torch.bfloat16)):
+        args = (g, plane, c["x"], c["y"], scale, c["angle"])
+        tail = (c["h"], c["w"], P, CFG)
+        d1, d2 = descriptor_hist(*args, live, *tail), descriptor_hist(*args, live, *tail)
+        torch.cuda.synchronize()
+        assert torch.equal(d1, d2) and not d1[40:60].any()
+        torch.testing.assert_close(d1, descriptor_plain(*args, live, *tail),
+                                   rtol=1e-6, atol=1e-7)
+        for k in (0, 1, n):
+            count = torch.tensor(k, device=dev)
+            p1 = descriptor_hist_prefix(*args, count, *tail)
+            p2 = descriptor_hist_prefix(*args, count, *tail)
+            torch.cuda.synchronize()
+            lv = torch.arange(n, device=dev) < count
+            assert torch.equal(p1, p2) and not p1[k:].any()
+            torch.testing.assert_close(p1, descriptor_plain(*args, lv, *tail),
+                                       rtol=1e-6, atol=1e-7)
 
 
 def test_budget_single_split_on_card(dev):

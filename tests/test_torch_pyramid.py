@@ -72,3 +72,21 @@ def test_k1_plain_matches_pallas_interior(octave_case):
                                atol=3e-7)
     np.testing.assert_allclose(d_t.numpy()[sl], np.asarray(d_j)[sl], rtol=0,
                                atol=6e-7)
+
+
+def test_level_plan():
+    """The host plan of a K1 / K9 level launch: 64-row tiles at the default
+    taps, two blocks' shared memory within the H100's 227 KB at every tap
+    count the kernel takes, and a clear error above its bound."""
+    taps = [len(t) for t in tk.octave_taps(CFG)]
+    assert [tk.level_plan(n)[0] for n in taps] == [64] * len(taps)
+    for n in range(1, tk.MAX_TAPS + 1, 2):
+        tile_h, smem = tk.level_plan(n)
+        r, ra = n // 2, -(-(n // 2) // 4) * 4
+        assert tile_h % tk.ROWS_PER_THREAD == 0
+        assert smem == (tile_h + 2 * r) * (2 * tk.TILE_W + 2 * ra) * 4
+        assert 2 * smem <= tk.SMEM_LIMIT
+    assert tk.level_plan(27) == (64, 103680)
+    for n in (tk.MAX_TAPS + 2, 65, 12, 0):
+        with pytest.raises(ValueError, match="level kernel takes an odd count"):
+            tk.level_plan(n)
