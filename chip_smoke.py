@@ -11,9 +11,11 @@ Phases (any failure stops the script with a non-zero exit):
      the inputs the main path gives it at octave 0 of a 1080p B=4 batch
      (captured from a run of the entry point), two launches compared byte
      for byte, per-launch time, plain-version time, the bound and, where one
-     PyTorch call computes the same function, that call's time; K1 is
-     held bit-exact at every fused octave's base (its tiles' edge cases
-     differ by shape), timed at octave 0;
+     PyTorch call computes the same function, that call's time; K1 and K2
+     are held bit-exact at every fused octave (their tiles' and strips'
+     edge cases differ by shape), timed at octave 0; a measurement probe
+     is printed, not gated: a streaming read of K2's DoG (the bandwidth
+     its access pattern can reach);
      K2', K5', K6' and K9 are held the same way at the octave-0 inputs of
      the per-frame path (_extract_single on frame 0), K9 at every octave
      that path builds with it; K10 and K11 at K3's
@@ -24,7 +26,8 @@ Phases (any failure stops the script with a non-zero exit):
      by response and cross-check matching of frame i against frame i+1 (the
      step bench.py times), with launch counts reset just before and read
      just after; kps/frame, the capacity overflow audit, median step time,
-     peak memory, per-kernel time inside the step, a profile of one step;
+     peak memory, per-kernel time inside the step, a profile of one step
+     (with every port kernel's device time), the matcher's time;
   5. budget: the same batch with features_limit=2048 (bench.py's step_b:
      match the first 1024 rows), launches (K6' and never K6), median step,
      peak memory; the output byte-identical to _truncate_result of the
@@ -44,7 +47,7 @@ Phases (any failure stops the script with a non-zero exit):
       byte-identical to the default budget output;
   11. storage: storage_dtype "bfloat16" and "split" and gather_dtype
       "bfloat16". Each new kernel form against its plain version at the
-      octave-0 inputs of its path (K1 forms at every fused octave; K1, K9,
+      octave-0 inputs of its path (K1 and K2 forms at every fused octave; K1, K9,
       K2 and K4 forms bit-exact, the
       window kernels on bf16 levels within 1e-4); the split and gather16 K1
       against the f32 K1 bit for bit. Each mode's main step: its K1 form
@@ -55,7 +58,10 @@ Phases (any failure stops the script with a non-zero exit):
       (K8, K7 on bf16) equal to the bf16 step; the gather16 budget (K6′ on
       bf16) equal to the truncated gather16 output; card against CPU on the
       small image in each mode;
-  12. one JSON line with every kernel's numbers.
+  12. K5's probe lines, not gated: K5 with every lane dead and with its
+      per-sample math replaced by constants, by CUDA events around the
+      wrapper and by device time (the calls replayed from a CUDA graph);
+  13. one JSON line with every kernel's numbers.
 The last line is {"ok": true, "device": {...}}.
 
 It needs one CUDA card and nvcc; without a card it exits with code 2 and
@@ -169,7 +175,7 @@ def capture_octave0(torch, extractor, frames, dev):
     mod = "sift_features_tpu_torch.models.extractor"
     cap = capture_first_calls(
         torch, {k: (mod, a) for k, a in WRAPPERS.items()},
-        lambda: extractor.extract_batch(frames, device=dev), every=("K1",))
+        lambda: extractor.extract_batch(frames, device=dev), every=("K1", "K2"))
     img = torch.as_tensor(frames[0], device=dev)
     n_oct = extractor._n_octaves(H, W, extractor.DEFAULT_CONFIG)
     cap.update(capture_first_calls(
@@ -252,6 +258,60 @@ def make_record(torch, rows):
     return record
 
 
+def stream_probe_line(torch, k2, dog, words, cfg, name, ms):
+    """Prints (not gated) the time of a kernel that reads the DoG stack once
+    (16-byte loads in f32, 8-byte in bf16) and writes K2's words, no
+    stencil: the bandwidth K2's access pattern can reach."""
+    p_ms = time_ms(torch, lambda: k2.stream_probe(dog, cfg), 10)
+    nbytes = dog.numel() * dog.element_size() + words.numel() * 4
+    print(f"[probe] {name} streaming read of the same DoG: {p_ms:.4f} ms/launch, "
+          f"{nbytes / p_ms / 1e9:.3f} TB/s ({name}: {ms:.4f} ms, "
+          f"{nbytes / ms / 1e9:.3f} TB/s)", flush=True)
+
+
+def device_ms(torch, fn, reps: int = 10) -> float:
+    """Mean device time per fn() call, without the host time of its wrapper
+    (which CUDA events around back-to-back calls include when the wrapper
+    is the slower): reps calls captured in a CUDA graph, one replay timed
+    with CUDA events. fn must launch on the current stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def k5_probe_lines(torch, k5, args, kw, ms):
+    """Prints (not gated) two variants of K5 at the same inputs: every lane
+    dead (the launch and the zero writes), and the per-sample math replaced
+    by constants (window reads, the loop and the ordered adds); each with
+    CUDA events around the wrapper, as the kernel lines time, and as
+    device time (device_ms)."""
+    dead = torch.zeros_like(args[5])
+    a_dead = (*args[:5], dead, *args[6:])
+    runs = {"full K5": lambda: k5.orientation_hist_peaks(*args, **kw),
+            f"all {dead.numel()} lanes dead":
+                lambda: k5.orientation_hist_peaks(*a_dead, **kw),
+            "per-sample math constant": lambda: k5.orientation_probe(*args, **kw)}
+    ev = {k: ms if k == "full K5" else time_ms(torch, fn, 10) for k, fn in runs.items()}
+    dv = {k: device_ms(torch, fn) for k, fn in runs.items()}
+    print("[probe] K5 split, ms/launch (events / device): " + "; ".join(
+        f"{k} {ev[k]:.4f} / {dv[k]:.4f}" for k in runs), flush=True)
+
+
 def check_kernels(torch, cap, cfg, dev):
     """Phase 3: every kernel against its plain version at octave 0."""
     from sift_features_tpu_torch.ops.extrema import newton_step, refine
@@ -287,15 +347,19 @@ def check_kernels(torch, cap, cfg, dev):
            f"{len(bases)} octaves {[tuple(b.shape[1:]) for b in bases]}")
     del outs, plain, bases
 
-    # K2: extremum words
+    # K2: extremum words at every fused octave (the strips' and warps' edge
+    # cases differ by shape); times at octave 0
     (dog, bounds, _), _ = cap["K2"]
-    outs = [k2.extrema_words(dog, bounds, cfg) for _ in range(2)]
-    plain = k2.extrema_words_plain(dog, bounds, cfg)
+    calls = [a[:2] for a, _ in cap["K2*"]]
+    outs = [[k2.extrema_words(d, b, cfg) for d, b in calls] for _ in range(2)]
+    plain = [k2.extrema_words_plain(d, b, cfg) for d, b in calls]
     ms = time_ms(torch, lambda: k2.extrema_words(dog, bounds, cfg), 10)
     plain_ms = time_ms(torch, lambda: k2.extrema_words_plain(dog, bounds, cfg), 2)
-    record("K2", [outs[0]], [outs[1]], [plain], True, 0.0, ms, plain_ms,
-           dog.numel() * 4 + outs[0].numel() * 4, dog.numel() // 5 * 3 * 27)
-    del outs, plain
+    record("K2", outs[0], outs[1], plain, True, 0.0, ms, plain_ms,
+           dog.numel() * 4 + outs[0][0].numel() * 4, dog.numel() // 5 * 3 * 27,
+           note=f"; bit-exact at {len(calls)} octaves")
+    stream_probe_line(torch, k2, dog, outs[0][0], cfg, "K2", ms)
+    del outs, plain, calls
 
     # K3: the whole Newton walk, and K4 (one step) at the same candidates
     args, kw = cap["K3"]
@@ -611,6 +675,19 @@ def device_allocs(torch) -> int:
     return int(torch.cuda.memory_stats().get("num_device_alloc", 0))
 
 
+def port_kernel_names() -> set:
+    """The __global__ functions of the port's CUDA sources."""
+    import glob
+    import os
+    import re
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "sift_features_tpu_torch", "csrc", "*.cu")
+    return {m for fn in glob.glob(src)
+            for m in re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+                                 open(fn).read())}
+
+
 def profile_step(torch, step, step_ms: float, tag: str, top: int = 15) -> float:
     """Device kernel time of one step() by kernel and host-op time by
     operator (torch.profiler, CUPTI); prints the top entries and returns the
@@ -638,6 +715,11 @@ def profile_step(torch, step, step_ms: float, tag: str, top: int = 15) -> float:
           f"({busy_ms / step_ms:.1%} of the median step)")
     for t, n, key in kern[:top]:
         print(f"[{tag}] kernel {t:9.3f} ms {n:6d}x  {key[:80]}")
+    ours = port_kernel_names()
+    for t, n, key in kern:
+        name = key.removeprefix("void ").split("<")[0].split("(")[0]
+        if name in ours:
+            print(f"[{tag}] port kernel {t:9.3f} ms {n:6d}x  {key[:80]}")
     for t, n, key in ops[:top]:
         print(f"[{tag}] op     {t:9.3f} ms {n:6d}x  {key[:80]}")
     return busy_ms
@@ -903,7 +985,7 @@ def check_storage_kernels(torch, extractor, frames, cfgs, cfg, dev, rows):
         "K5": (EXTRACTOR, "orientation_hist_peaks"),
         "K6": (EXTRACTOR, "descriptor_hist")},
         lambda: extractor.extract_batch(frames, cfgs["bfloat16"], device=dev),
-        every=("K1",))
+        every=("K1", "K2"))
     cap_g = capture_first_calls(torch, {
         "K1": (EXTRACTOR, "octave_fused"),
         "K6′": (KMOD + "descriptor", "descriptor_hist_prefix")},
@@ -997,14 +1079,18 @@ def check_storage_kernels(torch, extractor, frames, cfgs, cfg, dev, rows):
                f"conv2d of level 1 ({base.dtype}) {lib:.3f} ms")
         del res, plain
 
-    # K2 and K4 on the bf16 DoG: bit-exact
+    # K2 (at every fused octave) and K4 on the bf16 DoG: bit-exact
     (dog, bounds, _), _ = cap["K2"]
-    outs = [k2.extrema_words(dog, bounds, cfg) for _ in range(2)]
-    plain = k2.extrema_words_plain(dog, bounds, cfg)
+    calls = [a[:2] for a, _ in cap["K2*"]]
+    outs = [[k2.extrema_words(d, b, cfg) for d, b in calls] for _ in range(2)]
+    plain = [k2.extrema_words_plain(d, b, cfg) for d, b in calls]
     ms = time_ms(torch, lambda: k2.extrema_words(dog, bounds, cfg), 10)
     plain_ms = time_ms(torch, lambda: k2.extrema_words_plain(dog, bounds, cfg), 2)
-    record("K2:bf16", [outs[0]], [outs[1]], [plain], True, 0.0, ms, plain_ms,
-           nbytes_of(dog, outs[0]), dog.numel() // 5 * 3 * 27)
+    record("K2:bf16", outs[0], outs[1], plain, True, 0.0, ms, plain_ms,
+           nbytes_of(dog, outs[0][0]), dog.numel() // 5 * 3 * 27,
+           note=f"; bit-exact at {len(calls)} octaves")
+    stream_probe_line(torch, k2, dog, outs[0][0], cfg, "K2:bf16", ms)
+    del outs, plain, calls
     args, _ = cap["K4"]
     dog_flat, p, y, x, active = args[:5]
     n_act = int(active.sum())
@@ -1421,6 +1507,8 @@ def main() -> int:
     match_ms = time_ms(torch, lambda: [match_dense(d[(i + 1) % B], d[i])
                                        for i in range(B)], 5)
     cdist_ms = time_ms(torch, lambda: torch.cdist(d, dt), 5)
+    print(f"[match] {B} cross-check matches of {N_MATCH} x {N_MATCH} rows: "
+          f"match_ms {match_ms:.4f} (library cdist {cdist_ms:.4f})", flush=True)
     print(json.dumps({
         "e2e": "1080p extract + match, B=4", "card": smi,
         "kps_per_frame": kps_frame, "matches_kept": n_kept,
@@ -1488,7 +1576,15 @@ def main() -> int:
     del res_full
     torch.cuda.empty_cache()
 
-    # 12. the kernels line
+    # 12. K5's probe lines
+    from sift_features_tpu_torch.ops.kernels import orientation as k5
+
+    cap5 = capture_first_calls(torch, {"K5": (EXTRACTOR, "orientation_hist_peaks")},
+                               lambda: extractor.extract_batch(frames, cfg, device=dev))
+    k5_probe_lines(torch, k5, *cap5["K5"], rows["K5"]["ms"])
+    del cap5
+
+    # 13. the kernels line
     paths = {"K4": ("refine_mode=step, 240x320", step_launches),
              "K6′": (f"budget, features_limit={BUDGET}", budget_row["launches"]),
              "K10": ("refine_mode=region main step", modes["region"]["launches"]),

@@ -8,16 +8,18 @@ own (so each imports its own `sift_features_tpu_torch` and builds its own
 kernels), that checkout's `chip_smoke.py` kernel phases on the 1080p B=4
 batch: phase 3 (every kernel against its plain version, per-launch times,
 bounds) and phase 11a (the storage forms), then phase 4's per-kernel
-device time inside one main step (CUDA events around each wrapper call)
-and the peak memory of each stage of `extract_batch` in the default and
-the storage modes. Prints each run's lines and, at the end, one table of
-per-launch times by kernel and run; with --out, writes every number to
-that JSON file. Comparing checkouts within one run, parent / change /
+device time inside one main step (CUDA events around each wrapper call),
+the median of 10 main steps (host clock around each, ending in a
+synchronize) and the peak memory of each stage of `extract_batch` in the
+default and the storage modes. Prints each run's lines and, at the end,
+one table of per-launch times by kernel and run and the step medians by
+run; with --out, writes every number to that JSON file. Comparing checkouts within one run, parent / change /
 change / parent, keeps the card and its power limit the same.
 """
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -83,6 +85,12 @@ def one(tree: str) -> dict:
         for attr, fn in saved.items():
             setattr(extractor, attr, fn)
     in_step = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in events.items()}
+    step_ms = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
     stage_peaks = {"f32": cs.stage_peaks(torch, extractor, step)}
     for mode, c in cfgs.items():
         stage_peaks[mode] = cs.stage_peaks(torch, extractor, lambda c=c: step(c))
@@ -90,6 +98,7 @@ def one(tree: str) -> dict:
             "device": torch.cuda.get_device_name(0), "build_s": build_s,
             "ptxas": ptxas, "rows": rows, "kernel_ms_in_step": in_step,
             "launches_in_step": {k: len(v) for k, v in events.items()},
+            "step_ms": step_ms,
             "stage_peak_gb": stage_peaks}
 
 
@@ -131,6 +140,8 @@ def main(argv) -> int:
     for k in runs[-1]["kernel_ms_in_step"]:
         ms = " / ".join(f"{r['kernel_ms_in_step'].get(k, 0):.3f}" for r in runs)
         print(f"[kernel_ab] in one main step: {k} {ms} ms")
+    print("[kernel_ab] main step median ms: " + " / ".join(
+        f"{statistics.median(r['step_ms']):.1f}" for r in runs))
     for r in runs:
         print(f"[kernel_ab] {os.path.relpath(r['tree'])}: K1-stage peak GB "
               f"{ {m: round(v['octave_fused'], 3) for m, v in r['stage_peak_gb'].items()} }")

@@ -47,6 +47,10 @@ __device__ __forceinline__ float rust_round(float x) {
   return rintf(x);  // half to even elsewhere, as torch.round
 }
 
+// ONE_DIV: the reduction's two divisions as one, num / den (ax / 1 is
+// exact), so each case rounds as before. K5's sample loop takes it; the
+// other kernels keep the two divisions, which their code schedules better.
+template <bool ONE_DIV = false>
 __device__ __forceinline__ float atan_f32(float x) {
   // Cephes atanf: |x| reduced to [0, tan(pi/8)], degree-7 odd polynomial
   const float TAN_PI_8 = 0x1.a8279ap-2f;
@@ -54,8 +58,15 @@ __device__ __forceinline__ float atan_f32(float x) {
   float ax = fabsf(x);
   bool big = ax > TAN_3PI_8;
   bool mid = (ax > TAN_PI_8) && !big;
-  float x1 = big ? -1.0f / fmaxf(ax, 0x1.4484cp-100f)
-                 : (mid ? (ax - 1.0f) / (ax + 1.0f) : ax);
+  float x1;
+  if (ONE_DIV) {
+    float num = big ? -1.0f : (mid ? ax - 1.0f : ax);
+    float den = big ? fmaxf(ax, 0x1.4484cp-100f) : (mid ? ax + 1.0f : 1.0f);
+    x1 = num / den;
+  } else {
+    x1 = big ? -1.0f / fmaxf(ax, 0x1.4484cp-100f)
+             : (mid ? (ax - 1.0f) / (ax + 1.0f) : ax);
+  }
   float z = x1 * x1;
   float p = (((0x1.49e1a2p-4f * z - 0x1.1c370ap-3f) * z + 0x1.9924bep-3f) * z
              - 0x1.555454p-2f) * z * x1 + x1;
@@ -63,10 +74,11 @@ __device__ __forceinline__ float atan_f32(float x) {
   return x < 0.0f ? -r : r;
 }
 
+template <bool ONE_DIV = false>
 __device__ __forceinline__ float atan2_f32(float y, float x) {
   // standard quadrant rules, atan2(0, -a) = +pi
   if (x == 0.0f) return y > 0.0f ? 0x1.921fb6p+0f : (y < 0.0f ? -0x1.921fb6p+0f : 0.0f);
-  float a = atan_f32(y / x);
+  float a = atan_f32<ONE_DIV>(y / x);
   if (x > 0.0f) return a;
   return y >= 0.0f ? a + 0x1.921fb6p+1f : a - 0x1.921fb6p+1f;
 }

@@ -15,17 +15,41 @@
 // histogram once with [1,4,6,4,1]/16 and returns the first N_PEAKS angles
 // of orientation_peaks (lib.rs:394-431) with the true peak count.
 //
-// Deterministic by construction: thread r sums window row r over columns in
-// ascending order into its own shared-memory row, then thread b sums bin b
-// over rows in ascending order. No atomics; the plain version
-// (ops/kernels/orientation.py) adds in the same order.
+// Deterministic by construction, in one summation order: within each window
+// row, columns ascending per bin; then, per bin, rows ascending. No
+// atomics; the plain version (ops/kernels/orientation.py) and K8 add in the
+// same order, so their raw rows are equal bit for bit.
 //
-// Bound on the H100: latency of the per-row serial sums. The bytes are
-// small (each survivor reads <= 35 x 35 pixels, mostly from L2, and writes
-// 41 floats); the ~25 flops plus one atan2 and one f64 exp per sample are
-// a few GFLOP per 1080p batch. One block per lane, with dead lanes exiting
-// at once, keeps the design simple; a later version can give a warp per
-// row and reduce across the warp in a fixed order.
+// Bound on the H100: operations (the bound counts ~60 f32 instructions a
+// sample; the sample's two IEEE divisions and square root expand to
+// several each). The bytes are each live lane's <= 35 x 35 window, mostly
+// from L2. Measured before this design (PERF.md): of 0.43 ms per octave-0
+// launch, 65,536 one-lane blocks (a third live) and the wrapper's host
+// time made 0.09, the sample math 0.10, and one thread's serial sum per
+// window row, every sample read from global memory, the rest.
+//
+// Design: a warp per lane, ORI_WARPS warps a block, the grid sized to what
+// the card holds at once and each warp striding over the lanes. In a round
+// of 32 lanes, thread j loads lane j's flag and parameters (one load each
+// for the warp) and the warp zeroes the dead lanes' rows with coalesced
+// stores, so a dead lane costs little. A live lane's warp
+//  - stages its (2r+3)^2 window in shared memory (coalesced row reads,
+//    ORI_STAGE loads in flight a thread, widened to f32); the first chunk
+//    of the next live lane's window is loaded while this lane finishes;
+//  - tabulates the Gaussian weight once per distinct (|dy|, |dx|) (<= 153
+//    f64 exps instead of <= 1,089);
+//  - phase A: all 32 threads compute the samples, each writing a record
+//    (bin, weight * magnitude) in row-major order;
+//  - phase B: thread r applies row r's records in ascending columns to its
+//    row histogram, then thread b sums bin b over the rows in ascending
+//    order;
+//  - thread b smooths bin b; a ballot and popc rank the peaks in ascending
+//    bin order, with the f32 expressions of orientation_peaks.
+// The window and the row histograms share memory (the window is dead once
+// phase A ends), and so do the weight table and the raw and smoothed
+// histograms: 10.7 KB a warp at 36 bins, 4 blocks of 5 warps an SM. The
+// sample loop stays rolled: unrolled, it ran slower on the card. Each live
+// lane is latency-bound; phase A takes about half of its cycles.
 //
 // The Gaussian planes may be f32 or bf16 (storage_dtype "bfloat16" or
 // "split", gather_dtype "bfloat16"): every kernel here is a template on the
@@ -36,6 +60,13 @@
 #define R_ORI_MAX 16
 #define MAX_BINS 64
 #define MAX_PEAKS 8
+#define ORI_WARPS 5                                         // 4 blocks, 20 warps an SM
+#define ORI_WIN (2 * R_ORI_MAX + 3)                         // window side
+#define ORI_N (2 * R_ORI_MAX + 1)                           // sample rows
+#define ORI_TAB ((R_ORI_MAX + 1) * (R_ORI_MAX + 2) / 2)     // |dy| <= |dx| pairs
+#define ORI_SKIP 255                                        // a record adding nothing
+#define ORI_FULL 0xffffffffu
+#define ORI_STAGE 8                                         // window loads in flight a thread
 
 // Radius (f32), Gaussian weight scale -1 / (2 sigma^2) and the integer
 // half-width min(radius, r_max) of one keypoint's window.
@@ -50,8 +81,8 @@ __device__ __forceinline__ int orientation_lane(float scale, float radius_factor
 
 // Adds window row dy of one keypoint to acc (n_bins), columns ascending:
 // samples within the radius and inside [1, w-2]. g points at the sample of
-// row y + dy, column x, in a plane of row stride `stride` (the Gaussian
-// level in device memory for K5, the staged window for K8).
+// row y + dy, column x, in a plane of row stride `stride` (K8's staged
+// window).
 template <typename T>
 __device__ __forceinline__ void orientation_row(const T* g, int stride, int dy, int ri,
                                                 float radius, int x, int w, float gws,
@@ -71,125 +102,347 @@ __device__ __forceinline__ void orientation_row(const T* g, int stride, int dy, 
   }
 }
 
-template <typename T>
-__global__ void orientation_kernel(
-    const T* __restrict__ gauss, int Hp, int Wp, const int* __restrict__ plane,
-    const int* __restrict__ ys, const int* __restrict__ xs,
-    const float* __restrict__ scales, const int* __restrict__ live,
-    const int* __restrict__ count, float* __restrict__ hist, float* __restrict__ ang,
-    int* __restrict__ npk, int h, int w, int pad, int n_bins, int n_peaks, float radius_factor,
-    float lambda_ori, float ratio, float bstep) {
-  __shared__ float rows[2 * R_ORI_MAX + 1][MAX_BINS + 1];
-  __shared__ float raw[MAX_BINS];
-  int k = blockIdx.x;
-  int t = threadIdx.x;
-  float* hrow = hist + (long long)k * n_bins;
-  if (count ? k >= *count : !live[k]) {
-    for (int b = t; b < n_bins; b += blockDim.x) hrow[b] = 0.0f;
-    for (int j = t; j < n_peaks; j += blockDim.x) ang[(long long)k * n_peaks + j] = 0.0f;
-    if (t == 0) npk[k] = 0;
-    return;
-  }
-  float radius, gws;
-  int ri = orientation_lane(scales[k], radius_factor, lambda_ori, R_ORI_MAX, &radius, &gws);
-  int n = 2 * ri + 1;
-  int y = ys[k], x = xs[k];
-  for (int i = t; i < n * n_bins; i += blockDim.x) rows[i / n_bins][i % n_bins] = 0.0f;
-  __syncthreads();
-  if (t < n) {
-    int dy = t - ri;
-    int yy = y + dy;
-    if (fabsf((float)dy) <= radius && yy >= 1 && yy <= h - 2)
-      orientation_row(gauss + (long long)plane[k] * Hp * Wp + (long long)(yy + pad) * Wp +
-                          pad + x,
-                      Wp, dy, ri, radius, x, w, gws, bstep, n_bins, rows[t]);
-  }
-  __syncthreads();
-  for (int b = t; b < n_bins; b += blockDim.x) {
-    float acc = 0.0f;
-    for (int r = 0; r < n; ++r) acc = acc + rows[r][b];
-    raw[b] = acc;
-    hrow[b] = acc;
-  }
-  __syncthreads();
-  if (t != 0) return;
-  // smoothing + peaks, in the op order of ops/orientation.py
-  float sm[MAX_BINS];
-  for (int b = 0; b < n_bins; ++b) {
-    float rm2 = raw[(b - 2 + n_bins) % n_bins], rp2 = raw[(b + 2) % n_bins];
-    float rm1 = raw[(b - 1 + n_bins) % n_bins], rp1 = raw[(b + 1) % n_bins];
-    sm[b] = (rm2 + rp2) * 0.0625f + (rm1 + rp1) * 0.25f + raw[b] * 6.0f / 16.0f;
-  }
-  float hmax = sm[0];
-  for (int b = 1; b < n_bins; ++b) hmax = fmaxf(hmax, sm[b]);
-  float thr = hmax * ratio;
-  float nb = (float)n_bins;
-  float binw = 360.0f / nb;
-  int cnt = 0;
-  float out[MAX_PEAKS];
-  for (int j = 0; j < n_peaks; ++j) out[j] = 0.0f;
-  for (int b = 0; b < n_bins; ++b) {
-    float hm = sm[(b - 1 + n_bins) % n_bins], hp = sm[(b + 1) % n_bins];
-    if (!(sm[b] > hm && sm[b] > hp && sm[b] >= thr)) continue;
-    float interp = (hm - hp) / (hm - 2.0f * sm[b] + hp);
-    float bin_f = (float)b + 0.5f * interp;
-    bin_f = bin_f < 0.0f ? nb + bin_f : (bin_f >= nb ? bin_f - nb : bin_f);
-    if (cnt < n_peaks) out[cnt] = 360.0f - binw * bin_f;
-    ++cnt;
-  }
-  for (int j = 0; j < n_peaks; ++j) ang[(long long)k * n_peaks + j] = out[j];
-  npk[k] = cnt;
+// Shared memory of one K5 warp, in floats: the window, later the row
+// histograms; the records' values; the weight table, later the raw and
+// smoothed histograms; the records' bins (bytes).
+__host__ __device__ __forceinline__ int ori_union_floats(int n_bins) {
+  return ORI_N * (n_bins + 1) > ORI_WIN * ORI_WIN ? ORI_N * (n_bins + 1) : ORI_WIN * ORI_WIN;
+}
+__host__ __device__ __forceinline__ int ori_tab_floats(int n_bins) {
+  return 2 * n_bins > ORI_TAB ? 2 * n_bins : ORI_TAB;
+}
+__host__ __device__ __forceinline__ int ori_warp_floats(int n_bins) {
+  return ori_union_floats(n_bins) + ORI_N * ORI_N + ori_tab_floats(n_bins) +
+         (ORI_N * ORI_N + 3) / 4;
 }
 
-static int launch_orientation(const void* gauss, int gauss_t, int Hp, int Wp,
+// b mod n for -n <= b < 2n
+__device__ __forceinline__ int ori_wrap(int b, int n) {
+  return b < 0 ? b + n : (b >= n ? b - n : b);
+}
+
+// One chunk of a window's loads, ORI_STAGE a thread: elements i0 + u * 32 +
+// lane of the wn x wn window at padded (oy, ox) of plane g0 (zero outside
+// the plane), held in the plane's type so no instruction waits on them
+// before their stores into win, which widen them.
+template <typename T>
+__device__ __forceinline__ void ori_load(T (&v)[ORI_STAGE], const T* g0, int oy, int ox,
+                                         int wn, int i0, int lane, int Hp, int Wp) {
+  // i / wn for i < 2^11, exact: (i + 0.5) / wn lies >= 0.5 / wn from an
+  // integer, far beyond the f32 product's error
+  float inv = 1.0f / (float)wn;
+#pragma unroll
+  for (int u = 0; u < ORI_STAGE; ++u) {
+    int i = i0 + u * 32 + lane;
+    int r = (int)(((float)i + 0.5f) * inv);
+    int gy = oy + r, gx = ox + i - r * wn;
+    v[u] = i < wn * wn && gy >= 0 && gy < Hp && gx >= 0 && gx < Wp
+               ? g0[(long long)gy * Wp + gx] : from_f32<T>(0.0f);
+  }
+}
+template <typename T>
+__device__ __forceinline__ void ori_store(float* win, const T (&v)[ORI_STAGE], int wn,
+                                          int i0, int lane) {
+#pragma unroll
+  for (int u = 0; u < ORI_STAGE; ++u)
+    if (i0 + u * 32 + lane < wn * wn) win[i0 + u * 32 + lane] = to_f32(v[u]);
+}
+
+// CONST_MATH: the measurement probe (sift_orientation_probe), with the
+// per-sample math (weight table, magnitude, angle, bin) replaced by
+// constants; its outputs mean nothing.
+template <typename T, bool CONST_MATH>
+__global__ void __launch_bounds__(ORI_WARPS * 32) orientation_kernel(
+    const T* __restrict__ gauss, int n_planes, int Hp, int Wp, const int* __restrict__ plane,
+    const int* __restrict__ ys, const int* __restrict__ xs,
+    const float* __restrict__ scales, const unsigned char* __restrict__ live,
+    const int* __restrict__ count, float* __restrict__ hist, float* __restrict__ ang,
+    int* __restrict__ npk, int K, int h, int w, int pad, int n_bins, int n_peaks,
+    float radius_factor, float lambda_ori, float ratio, float bstep) {
+  extern __shared__ float ori_smem[];
+  int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  int nb1 = n_bins + 1;
+  float* win = ori_smem + wid * ori_warp_floats(n_bins);
+  float* rows = win;  // once phase A is done
+  float* val = win + ori_union_floats(n_bins);
+  float* tab = val + ORI_N * ORI_N;
+  float* raw = tab;  // once phase A is done
+  float* sm = raw + n_bins;
+  unsigned char* bins = reinterpret_cast<unsigned char*>(tab + ori_tab_floats(n_bins));
+  int n_live = count ? *count : 0;
+  int nw = gridDim.x * ORI_WARPS;
+  // a round: lanes k0 + j * nw, j < 32; thread j reads lane j's flag and
+  // parameters (one load each for the warp), then the warp zeroes each
+  // dead lane's rows with coalesced stores and describes each live one
+  for (int k0 = blockIdx.x * ORI_WARPS + wid; k0 < K; k0 += 32 * nw) {
+    int kj = k0 + lane * nw;
+    bool lv = kj < K && (count ? kj < n_live : live[kj] != 0);
+    float sc_j = 0.0f;
+    int y_j = 0, x_j = 0, p_j = 0;
+    if (lv) {  // clamped as the plain version clamps
+      sc_j = scales[kj];
+      y_j = min(max(ys[kj], 0), h - 1);
+      x_j = min(max(xs[kj], 0), w - 1);
+      p_j = min(max(plane[kj], 0), n_planes - 1);
+    }
+    for (unsigned z = __ballot_sync(ORI_FULL, kj < K && !lv); z; z &= z - 1) {
+      long long k = k0 + (long long)(__ffs(z) - 1) * nw;
+      for (int b = lane; b < n_bins; b += 32) hist[k * n_bins + b] = 0.0f;
+      if (lane < n_peaks) ang[k * n_peaks + lane] = 0.0f;
+      if (lane == 0) npk[k] = 0;
+    }
+    // the first chunk of the next live lane's window, loaded while the
+    // current lane finishes (pre_j: its lane, -1 for none)
+    T pre[ORI_STAGE];
+    int pre_j = -1;
+    for (unsigned todo = __ballot_sync(ORI_FULL, lv); todo; todo &= todo - 1) {
+      int j = __ffs(todo) - 1;
+      int k = k0 + j * nw;
+      float* hrow = hist + (long long)k * n_bins;
+      float* arow = ang + (long long)k * n_peaks;
+      float radius, gws;
+      int ri = orientation_lane(__shfl_sync(ORI_FULL, sc_j, j), radius_factor, lambda_ori,
+                                R_ORI_MAX, &radius, &gws);
+      int y = __shfl_sync(ORI_FULL, y_j, j), x = __shfl_sync(ORI_FULL, x_j, j);
+      int n = 2 * ri + 1, wn = n + 2;
+      // the window rows y - ri - 1 .. y + ri + 1, columns x - ri - 1 ..
+      // x + ri + 1, its loads issued ORI_STAGE at a time
+      const T* g0 = gauss + (long long)__shfl_sync(ORI_FULL, p_j, j) * Hp * Wp;
+      int oy = y + pad - ri - 1, ox = x + pad - ri - 1;
+      for (int i0 = 0; i0 < wn * wn; i0 += 32 * ORI_STAGE) {
+        if (i0 || pre_j != j) ori_load(pre, g0, oy, ox, wn, i0, lane, Hp, Wp);
+        ori_store(win, pre, wn, i0, lane);
+      }
+      pre_j = -1;
+      if (!CONST_MATH) {
+        // tab[b (b + 1) / 2 + a] = weight at |dy|, |dx| = a <= b (either
+        // order); b = floor((sqrt(8i + 1) - 1) / 2) exactly: the sqrt is
+        // correctly rounded, exact at squares and >= 1 / 70 below the next
+        for (int i = lane; i < (ri + 1) * (ri + 2) / 2; i += 32) {
+          int b = (int)((sqrtf(8.0f * (float)i + 1.0f) - 1.0f) * 0.5f);
+          int a = i - b * (b + 1) / 2;
+          tab[i] = exp_f32_via_f64((float)(a * a + b * b) * gws);
+        }
+      }
+      __syncwarp();
+      // phase A: one record per sample, row-major
+      float inv_n = 1.0f / (float)n;  // exact quotients, as in ori_load
+      for (int i = lane; i < n * n; i += 32) {
+        int r = (int)(((float)i + 0.5f) * inv_n);
+        int c = i - r * n;
+        int dy = r - ri, dx = c - ri;
+        int yy = y + dy, xx = x + dx;
+        unsigned bn = ORI_SKIP;
+        float v = 0.0f;
+        if (fabsf((float)dy) <= radius && yy >= 1 && yy <= h - 2 &&
+            fabsf((float)dx) <= radius && xx >= 1 && xx <= w - 2) {
+          const float* g = win + (r + 1) * wn + c + 1;
+          float gx = g[1] - g[-1];
+          float gy = g[-wn] - g[wn];
+          if (CONST_MATH) {
+            v = gx + gy;
+            bn = c < n_bins ? c : n_bins - 1;
+          } else {
+            int ay = abs(dy), ax = abs(dx);
+            int lo = ay < ax ? ay : ax, hi = ay < ax ? ax : ay;
+            float weight = tab[hi * (hi + 1) / 2 + lo];
+            float mag = sqrtf(gx * gx + gy * gy);
+            int b = (int)round_half_away(bstep * atan2_f32<true>(gy, gx));
+            if (b >= n_bins) b -= n_bins;
+            if (b < 0) b += n_bins;
+            v = weight * mag;
+            bn = (unsigned)b;
+          }
+        }
+        val[i] = v;
+        bins[i] = (unsigned char)bn;
+      }
+      __syncwarp();
+      if (todo & (todo - 1)) {  // prefetch the next live lane's first chunk
+        int jn = __ffs(todo & (todo - 1)) - 1;
+        float rn, gn;
+        int rin = orientation_lane(__shfl_sync(ORI_FULL, sc_j, jn), radius_factor, lambda_ori,
+                                   R_ORI_MAX, &rn, &gn);
+        ori_load(pre, gauss + (long long)__shfl_sync(ORI_FULL, p_j, jn) * Hp * Wp,
+                 __shfl_sync(ORI_FULL, y_j, jn) + pad - rin - 1,
+                 __shfl_sync(ORI_FULL, x_j, jn) + pad - rin - 1, 2 * rin + 3, 0, lane, Hp,
+                 Wp);
+        pre_j = jn;
+      }
+      // phase B: row r's records in ascending columns (thread r), then each
+      // bin over the rows in ascending order (thread b)
+      for (int i = lane; i < n * nb1; i += 32) rows[i] = 0.0f;
+      __syncwarp();
+      for (int r = lane; r < n; r += 32) {
+        // distinct arrays: the next records load ahead of each update
+        float* __restrict__ hr = rows + r * nb1;
+        const float* __restrict__ vr = val + r * n;
+        const unsigned char* __restrict__ br = bins + r * n;
+#pragma unroll 4
+        for (int c = 0; c < n; ++c) {
+          unsigned bn = br[c];
+          if (bn != ORI_SKIP) hr[bn] += vr[c];
+        }
+      }
+      __syncwarp();
+      for (int b = lane; b < n_bins; b += 32) {
+        float acc = 0.0f;
+        for (int r = 0; r < n; ++r) acc = acc + rows[r * nb1 + b];
+        raw[b] = acc;
+        hrow[b] = acc;
+      }
+      __syncwarp();
+      // smoothing + peaks, in the op order of ops/orientation.py
+      float hmax = __uint_as_float(0xff800000u);  // -inf: a lane past n_bins holds no bin
+      for (int b = lane; b < n_bins; b += 32) {
+        int m2 = n_bins > 1 ? ori_wrap(b - 2, n_bins) : 0;
+        int p2 = n_bins > 1 ? ori_wrap(b + 2, n_bins) : 0;
+        float rm2 = raw[m2], rp2 = raw[p2];
+        float rm1 = raw[ori_wrap(b - 1, n_bins)], rp1 = raw[ori_wrap(b + 1, n_bins)];
+        sm[b] = (rm2 + rp2) * 0.0625f + (rm1 + rp1) * 0.25f + raw[b] * 6.0f / 16.0f;
+        hmax = fmaxf(hmax, sm[b]);
+      }
+      for (int o = 16; o > 0; o >>= 1) hmax = fmaxf(hmax, __shfl_xor_sync(ORI_FULL, hmax, o));
+      __syncwarp();
+      float thr = hmax * ratio;
+      float nb = (float)n_bins;
+      float binw = 360.0f / nb;
+      int cnt = 0;
+      for (int b0 = 0; b0 < n_bins; b0 += 32) {
+        int b = b0 + lane;
+        bool pk = false;
+        float out = 0.0f;
+        if (b < n_bins) {
+          float hm = sm[ori_wrap(b - 1, n_bins)], hp = sm[ori_wrap(b + 1, n_bins)];
+          pk = sm[b] > hm && sm[b] > hp && sm[b] >= thr;
+          if (pk) {
+            float interp = (hm - hp) / (hm - 2.0f * sm[b] + hp);
+            float bin_f = (float)b + 0.5f * interp;
+            bin_f = bin_f < 0.0f ? nb + bin_f : (bin_f >= nb ? bin_f - nb : bin_f);
+            out = 360.0f - binw * bin_f;
+          }
+        }
+        unsigned bal = __ballot_sync(ORI_FULL, pk);
+        int rank = cnt + __popc(bal & ((1u << lane) - 1u));
+        if (pk && rank < n_peaks) arow[rank] = out;
+        cnt += __popc(bal);
+      }
+      if (lane >= cnt && lane < n_peaks) arow[lane] = 0.0f;
+      if (lane == 0) npk[k] = cnt;
+      __syncwarp();
+    }
+  }
+}
+
+template <typename T, bool CONST_MATH>
+static int launch_orientation_t(const T* gauss, int n_planes, int Hp, int Wp,
+                                const int* plane, const int* y, const int* x,
+                                const float* scale, const unsigned char* live,
+                                const int* count, float* hist, float* ang, int* npk, int K,
+                                int h, int w, int pad, int n_bins, int n_peaks,
+                                float radius_factor, float lambda_ori, float ratio,
+                                float bstep, cudaStream_t stream) {
+  void (*kern)(const T*, int, int, int, const int*, const int*, const int*, const float*,
+               const unsigned char*, const int*, float*, float*, int*, int, int, int, int,
+               int, int, float, float, float, float) = orientation_kernel<T, CONST_MATH>;
+  int smem = ORI_WARPS * ori_warp_floats(n_bins) * (int)sizeof(float);
+  // the grid the card holds at once (no more than one warp per lane), with
+  // all of the SM's shared memory; asked once per device and size (the
+  // queries cost more host time than a launch)
+  static int known_dev = -1, known_smem = -1, fit = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev != known_dev || smem != known_smem) {
+    int rc = (int)cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                       100);
+    if (!rc && smem > 48 * 1024)
+      rc = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     smem);
+    if (rc) return rc;
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, ORI_WARPS * 32, smem);
+    fit = sms * (per_sm > 0 ? per_sm : 1);
+    known_dev = dev;
+    known_smem = smem;
+  }
+  int need = (K + ORI_WARPS - 1) / ORI_WARPS;
+  kern<<<need < fit ? need : fit, ORI_WARPS * 32, smem, stream>>>(
+      gauss, n_planes, Hp, Wp, plane, y, x, scale, live, count, hist, ang, npk, K, h, w, pad,
+      n_bins, n_peaks, radius_factor, lambda_ori, ratio, bstep);
+  return (int)cudaGetLastError();
+}
+
+static int launch_orientation(const void* gauss, int gauss_t, int n_planes, int Hp, int Wp,
                               const int* plane, const int* y, const int* x,
-                              const float* scale, const int* live, const int* count,
+                              const float* scale, const unsigned char* live,
+                              const int* count,
                               float* hist, float* ang, int* npk, int K, int h, int w,
                               int pad, int n_bins, int n_peaks, float radius_factor,
                               float lambda_ori, float ratio, float bstep,
                               cudaStream_t stream) {
-  if (n_bins > MAX_BINS || n_peaks > MAX_PEAKS ||
+  if (n_bins < 1 || n_bins > MAX_BINS || n_peaks > MAX_PEAKS ||
       (gauss_t != SIFT_F32 && gauss_t != SIFT_BF16))
     return (int)cudaErrorInvalidValue;
   if (K == 0) return 0;
   if (gauss_t == SIFT_BF16)
-    orientation_kernel<bf16><<<K, 64, 0, stream>>>(
-        (const bf16*)gauss, Hp, Wp, plane, y, x, scale, live, count, hist, ang, npk, h, w,
-        pad, n_bins, n_peaks, radius_factor, lambda_ori, ratio, bstep);
-  else
-    orientation_kernel<float><<<K, 64, 0, stream>>>(
-        (const float*)gauss, Hp, Wp, plane, y, x, scale, live, count, hist, ang, npk, h,
-        w, pad, n_bins, n_peaks, radius_factor, lambda_ori, ratio, bstep);
-  return (int)cudaGetLastError();
+    return launch_orientation_t<bf16, false>(
+        (const bf16*)gauss, n_planes, Hp, Wp, plane, y, x, scale, live, count, hist, ang, npk,
+        K, h, w, pad, n_bins, n_peaks, radius_factor, lambda_ori, ratio, bstep, stream);
+  return launch_orientation_t<float, false>(
+      (const float*)gauss, n_planes, Hp, Wp, plane, y, x, scale, live, count, hist, ang, npk,
+      K, h, w, pad, n_bins, n_peaks, radius_factor, lambda_ori, ratio, bstep, stream);
 }
 
-// gauss (n_planes, Hp, Wp) of type gauss_t (f32 or bf16); plane/y/x/live (K,) int32 (y, x unpadded
-// octave coordinates); scale (K,) f32 -> hist (K, n_bins) raw f32, ang
-// (K, n_peaks) f32, npk (K,) int32. Dead lanes get zeros.
-SIFT_EXPORT int sift_orientation(const void* gauss, int gauss_t, int Hp, int Wp,
+// gauss (n_planes, Hp, Wp) of type gauss_t (f32 or bf16); plane/y/x (K,)
+// int32 (y, x unpadded octave coordinates; each clamped to its range, as
+// the plain version clamps); scale (K,) f32; live (K,) bool (one byte) ->
+// hist (K, n_bins) raw f32, ang (K, n_peaks) f32, npk (K,) int32. Dead
+// lanes get zeros.
+SIFT_EXPORT int sift_orientation(const void* gauss, int gauss_t, int n_planes, int Hp, int Wp,
                                  const int* plane, const int* y, const int* x,
-                                 const float* scale, const int* live, float* hist,
+                                 const float* scale, const unsigned char* live, float* hist,
                                  float* ang, int* npk, int K, int h, int w, int pad,
                                  int n_bins, int n_peaks, float radius_factor,
                                  float lambda_ori, float ratio, float bstep,
                                  cudaStream_t stream) {
-  return launch_orientation(gauss, gauss_t, Hp, Wp, plane, y, x, scale, live, nullptr,
-                            hist, ang,
+  return launch_orientation(gauss, gauss_t, n_planes, Hp, Wp, plane, y, x, scale, live,
+                            nullptr, hist, ang,
                             npk, K, h, w, pad, n_bins, n_peaks, radius_factor,
                             lambda_ori, ratio, bstep, stream);
 }
 
+// Measurement probe (on no path): sift_orientation on f32 planes with the
+// per-sample math replaced by constants (mode 1).
+SIFT_EXPORT int sift_orientation_probe(const void* gauss, int gauss_t, int n_planes, int Hp,
+                                       int Wp, const int* plane, const int* y, const int* x,
+                                       const float* scale, const unsigned char* live,
+                                       float* hist,
+                                       float* ang, int* npk, int K, int h, int w, int pad,
+                                       int n_bins, int n_peaks, float radius_factor,
+                                       float lambda_ori, float ratio, float bstep, int mode,
+                                       cudaStream_t stream) {
+  if (mode != 1 || gauss_t != SIFT_F32 || n_bins < 1 || n_bins > MAX_BINS ||
+      n_peaks > MAX_PEAKS)
+    return (int)cudaErrorInvalidValue;
+  if (K == 0) return 0;
+  return launch_orientation_t<float, true>(
+      (const float*)gauss, n_planes, Hp, Wp, plane, y, x, scale, live, nullptr, hist, ang,
+      npk, K, h, w, pad, n_bins, n_peaks, radius_factor, lambda_ori, ratio, bstep, stream);
+}
+
 // K5': the same with lane i live iff i < *count (count: one int32 on the
 // device).
-SIFT_EXPORT int sift_orientation_prefix(const void* gauss, int gauss_t, int Hp, int Wp,
+SIFT_EXPORT int sift_orientation_prefix(const void* gauss, int gauss_t, int n_planes, int Hp,
+                                        int Wp,
                                         const int* plane, const int* y, const int* x,
                                         const float* scale, const int* count,
                                         float* hist, float* ang, int* npk, int K, int h,
                                         int w, int pad, int n_bins, int n_peaks,
                                         float radius_factor, float lambda_ori,
                                         float ratio, float bstep, cudaStream_t stream) {
-  return launch_orientation(gauss, gauss_t, Hp, Wp, plane, y, x, scale, nullptr, count,
-                            hist, ang,
+  return launch_orientation(gauss, gauss_t, n_planes, Hp, Wp, plane, y, x, scale, nullptr,
+                            count, hist, ang,
                             npk, K, h, w, pad, n_bins, n_peaks, radius_factor,
                             lambda_ori, ratio, bstep, stream);
 }

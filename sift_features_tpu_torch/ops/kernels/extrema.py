@@ -3,10 +3,13 @@
 K2 (`extrema_words`, a frame batch) replaces
 sift_features_tpu/ops/pallas/extrema_kernel.py:extrema_words_batched and K2′
 (`extrema_words_single`, one frame) replaces extrema_kernel.py:extrema_words;
-both are one `_kernel` on the TPU. The CUDA kernel is csrc/extrema.cu; its note gives the bound
-(memory: one read of the DoG stack) and the design (one thread per pixel, a
-warp ballot per 32 columns). The DoG may be f32 or bf16 (storage_dtype
-"bfloat16"; launches count as `K2:bf16`), widened to f32 at the load.
+both are one `_kernel` on the TPU. The CUDA kernel is csrc/extrema.cu; its
+note gives the bound (bytes: one read of the DoG stack) and the design (a
+warp per 128 columns, 256 in bf16, walks a strip of rows, reading each DoG
+value once and keeping each scale's running 3x3x3 max and min in
+registers). The DoG may be f32 or bf16 (storage_dtype "bfloat16"; launches
+count as `K2:bf16`), compared in bf16 there, which orders values as their
+exact f32 widening does.
 """
 
 from __future__ import annotations
@@ -64,6 +67,26 @@ def extrema_words(dog: torch.Tensor, bounds, cfg: SiftConfig):
     name = build.form("K2", dog)
     build.check(rc, f"{name} extrema_words")
     build.count_launch(name)
+    return words
+
+
+def stream_probe(dog: torch.Tensor, cfg: SiftConfig) -> torch.Tensor:
+    """Measurement aid, on no path and not counted: a kernel that reads
+    every value of dog (B, S+2, Hp, Wp) once (4 columns a thread: 16-byte
+    loads in f32, 8-byte in bf16) and writes words of K2's shape, with no
+    stencil; its time is the bandwidth K2's access pattern can reach on the
+    card."""
+    build.require_cuda("stream_probe", dog)
+    b, _, hp, wp = dog.shape
+    n_s = cfg.scales_per_octave
+    words = torch.empty((b, n_s, hp, wp // 32), dtype=torch.int32,
+                        device=dog.device)
+    fn = build.bind("extrema", "sift_extrema_stream_probe",
+                    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    build.check(fn(build.ptr(dog), build.dtype_code("stream_probe", dog),
+                   build.ptr(words), b, n_s, hp, wp, build.stream_ptr(dog)),
+                "stream_probe")
     return words
 
 

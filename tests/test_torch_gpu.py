@@ -144,6 +144,51 @@ def test_k2_bit_exact(dev):
     assert int((words != 0).sum()) > 10
 
 
+def _k2_edge_dog(rng, b, n_p, hp, wp, bounds):
+    """A DoG with plateaus (values on a 0.5 grid: ties at the max and the
+    min), exact zeros of both signs, and strict extrema planted on the first
+    and last rows and columns of `bounds` and on columns 31, 32, 63 and 64
+    of a word."""
+    d = np.round(rng.randn(b, n_p, hp, wp) * 2) / 2
+    d[rng.rand(*d.shape) < 0.1] = 0.0
+    d[rng.rand(*d.shape) < 0.02] = -0.0
+    y0, y1, x0, x1 = bounds
+    ys, xs = (y0, y1 - 1, (y0 + y1) // 2), (x0, x1 - 1, 31, 32, 63, 64)
+    for i, (y, x) in enumerate((y, x) for y in ys for x in xs):
+        d[:, 1 + i % (n_p - 2), y, x] = 9.0 if i % 2 else -9.0
+    return torch.as_tensor(d.astype(np.float32))
+
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_k2_edges_bit_exact(dev, b):
+    """K2 (and K2′ at b = 1) on plateaus, zeros and extrema at the bounds'
+    edges and at word edges, with a plane height that is not a multiple of
+    the kernel's 32-row strips and bounds inside or at the plane's edge, at
+    S = 3 (one launch) and S = 2, 4 (scale groups), in f32 and bf16:
+    bit-equal to the plain version, two launches identical."""
+    import dataclasses
+
+    from sift_features_tpu_torch.ops.kernels.extrema import (
+        extrema_words, extrema_words_plain, extrema_words_single)
+
+    rng = np.random.RandomState(11)
+    for S in (3, 2, 4):
+        cfg = dataclasses.replace(CFG, scales_per_octave=S)
+        for hp, wp, bounds in ((70, 256, (3, 67, 1, 255)), (45, 384, (0, 45, 0, 384)),
+                               (100, 128, (5, 96, 20, 120))):
+            d = _k2_edge_dog(rng, b, S + 2, hp, wp, bounds).to(dev)
+            for x in (d, d.to(torch.bfloat16)):
+                got, again = extrema_words(x, bounds, cfg), extrema_words(x, bounds, cfg)
+                torch.cuda.synchronize()
+                want = extrema_words_plain(x, bounds, cfg)
+                assert torch.equal(got, want) and torch.equal(got, again), (S, hp, x.dtype)
+                assert int((got != 0).sum()) > 20
+                if b == 1:
+                    one = extrema_words_single(x[0], bounds, cfg)
+                    torch.cuda.synchronize()
+                    assert torch.equal(one, want[0])
+
+
 def test_k3_k4_bit_exact(dev):
     from sift_features_tpu_torch.ops.extrema import find_candidates_words
     from sift_features_tpu_torch.ops.kernels.extrema import extrema_words
@@ -287,6 +332,56 @@ def test_k5_prefix_matches_plain(dev):
     assert torch.equal(n1, npk)
     torch.testing.assert_close(a1, ap, rtol=1e-6, atol=1e-4)
     assert not h1[211:].any() and not n1[211:].any()
+
+
+def test_k5_edge_lanes_match_plain(dev):
+    """K5 and K5′ (one kernel, a warp per lane) on lanes of radius 16 at the
+    image border and of radius 0, with every lane dead, a lane count that is
+    not a multiple of the lanes per block, scattered liveness, and the
+    prefix form at count 0, 1 and K, on f32 and bf16 levels: raw rows, peak
+    angles and counts equal to the plain version's bit for bit (the same
+    summation order), two launches identical, and raw rows equal to K8's
+    where K8 takes the same lanes."""
+    from sift_features_tpu_torch.ops.kernels.orientation import (
+        orientation_hist_peaks, orientation_hist_perkey, orientation_hist_prefix,
+        orientation_plain)
+    from sift_features_tpu_torch.ops.util import round_half_away
+
+    c = _survivor_windows(dev, n=301)
+    n = c["plane"].numel()
+    h, w = c["h"], c["w"]
+    L = CFG.scales_per_octave
+    scale, plane = c["kp_scale"].clone(), c["plane"].clone()
+    y, x, live = c["y"].clone(), c["x"].clone(), c["live"].clone()
+    # radius 16 at the four borders and corners; radius 0
+    scale[:8], plane[:8] = 3.59, plane[:8] - plane[:8] % L + 2
+    y[:8] = torch.tensor([0, h - 1, 0, h - 1, 0, h // 2, h - 1, 1], device=dev)
+    x[:8] = torch.tensor([0, w - 1, w - 1, 0, w // 2, 0, w // 2, w - 2], device=dev)
+    scale[8:12] = 0.05
+    live[:12] = True
+    radii = round_half_away(scale[:12] * np.float32(3.0 * CFG.lambda_ori))
+    assert int(radii[:8].min()) == 16 and int(radii[8:].max()) == 0
+    tail = (h, w, P, CFG)
+    for g in (c["gauss_flat"], c["gauss_flat"].to(torch.bfloat16)):
+        lanes = (g, plane, y, x, scale)
+        for lv in (live, torch.zeros_like(live)):
+            got = orientation_hist_peaks(*lanes, lv, *tail)
+            again = orientation_hist_peaks(*lanes, lv, *tail)
+            torch.cuda.synchronize()
+            for a, a2, p in zip(got, again, orientation_plain(*lanes, lv, *tail)):
+                assert torch.equal(a, p) and torch.equal(a, a2)
+            assert not got[0][~lv].any() and not got[2][~lv].any()
+        for k in (0, 1, n):
+            count = torch.tensor(k, device=dev)
+            got = orientation_hist_prefix(*lanes, count, *tail)
+            torch.cuda.synchronize()
+            lv = torch.arange(n, device=dev) < count
+            for a, p in zip(got, orientation_plain(*lanes, lv, *tail)):
+                assert torch.equal(a, p)
+            # K8 on the same lanes at the largest window bound
+            k8 = orientation_hist_perkey(*lanes, count, h, w, P, 16, CFG)
+            torch.cuda.synchronize()
+            assert torch.equal(k8, got[0])
 
 
 def test_k6_prefix_matches_plain(dev):
