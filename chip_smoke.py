@@ -14,8 +14,8 @@ Phases (any failure stops the script with a non-zero exit):
      PyTorch call computes the same function, that call's time; K1 and K2
      are held bit-exact at every fused octave (their tiles' and strips'
      edge cases differ by shape), timed at octave 0; a measurement probe
-     is printed, not gated: a streaming read of K2's DoG (the bandwidth
-     its access pattern can reach);
+     is printed, not gated: a streaming read of the DoG values K2 needs
+     (probes/k2_stream.cu; the rate its access pattern can reach);
      K2', K5', K6' and K9 are held the same way at the octave-0 inputs of
      the per-frame path (_extract_single on frame 0), K9 at every octave
      that path builds with it; K10 and K11 at K3's
@@ -59,8 +59,9 @@ Phases (any failure stops the script with a non-zero exit):
       bf16) equal to the truncated gather16 output; card against CPU on the
       small image in each mode;
   12. K5's probe lines, not gated: K5 with every lane dead and with its
-      per-sample math replaced by constants, by CUDA events around the
-      wrapper and by device time (the calls replayed from a CUDA graph);
+      per-sample math replaced by constants (probes/: a copy of its
+      kernel), by CUDA events around the wrapper and by device time (the
+      calls replayed from a CUDA graph);
   13. one JSON line with every kernel's numbers.
 The last line is {"ok": true, "device": {...}}.
 
@@ -258,15 +259,36 @@ def make_record(torch, rows):
     return record
 
 
-def stream_probe_line(torch, k2, dog, words, cfg, name, ms):
-    """Prints (not gated) the time of a kernel that reads the DoG stack once
-    (16-byte loads in f32, 8-byte in bf16) and writes K2's words, no
-    stencil: the bandwidth K2's access pattern can reach."""
-    p_ms = time_ms(torch, lambda: k2.stream_probe(dog, cfg), 10)
-    nbytes = dog.numel() * dog.element_size() + words.numel() * 4
-    print(f"[probe] {name} streaming read of the same DoG: {p_ms:.4f} ms/launch, "
-          f"{nbytes / p_ms / 1e9:.3f} TB/s ({name}: {ms:.4f} ms, "
-          f"{nbytes / ms / 1e9:.3f} TB/s)", flush=True)
+def k2_work(dog, bounds, n_s: int):
+    """(bytes, operations) that K2's function needs on dog (B, S+2, Hp, Wp):
+    each DoG value of rows [y0 - 1, y1] and columns [x0 - 1, x1] (clipped
+    to the plane) read once, every word written once, and 27 compares for
+    each pixel inside the bounds of each scale."""
+    b, n_p, hp, wp = dog.shape
+    y0, y1, x0, x1 = (int(v) for v in bounds)
+    y0, y1, x0, x1 = max(y0, 0), min(y1, hp), max(x0, 0), min(x1, wp)
+    rows = max(min(y1 + 1, hp) - max(y0 - 1, 0), 0)
+    cols = max(min(x1 + 1, wp) - max(x0 - 1, 0), 0)
+    nbytes = b * n_p * rows * cols * dog.element_size() + b * n_s * hp * wp // 32 * 4
+    return nbytes, b * n_s * max(y1 - y0, 0) * max(x1 - x0, 0) * 27
+
+
+def stream_probe_line(torch, k2, dog, bounds, cfg, name, ms, nbytes):
+    """Prints (not gated) the time of a kernel that reads once the DoG
+    values K2 needs and writes K2's words of those rows, with no stencil
+    (probes/k2_stream.cu): what K2's reads cost at the rate its access
+    pattern can reach. Both by CUDA events around the wrapper, as the
+    kernel lines time, and as device time (device_ms); both rates are over
+    K2's byte count, nbytes."""
+    import probes
+
+    p_ms = time_ms(torch, lambda: probes.k2_stream(dog, bounds, cfg), 10)
+    p_dev = device_ms(torch, lambda: probes.k2_stream(dog, bounds, cfg))
+    k_dev = device_ms(torch, lambda: k2.extrema_words(dog, bounds, cfg))
+    print(f"[probe] {name} streaming read of the DoG values it needs, ms/launch "
+          f"(events / device): {p_ms:.4f} / {p_dev:.4f}, {nbytes / p_dev / 1e9:.3f} "
+          f"TB/s; {name} {ms:.4f} / {k_dev:.4f}, {nbytes / k_dev / 1e9:.3f} TB/s, "
+          f"{p_dev / k_dev:.1%} of the probe's rate", flush=True)
 
 
 def device_ms(torch, fn, reps: int = 10) -> float:
@@ -300,12 +322,14 @@ def k5_probe_lines(torch, k5, args, kw, ms):
     by constants (window reads, the loop and the ordered adds); each with
     CUDA events around the wrapper, as the kernel lines time, and as
     device time (device_ms)."""
+    import probes
+
     dead = torch.zeros_like(args[5])
     a_dead = (*args[:5], dead, *args[6:])
     runs = {"full K5": lambda: k5.orientation_hist_peaks(*args, **kw),
             f"all {dead.numel()} lanes dead":
                 lambda: k5.orientation_hist_peaks(*a_dead, **kw),
-            "per-sample math constant": lambda: k5.orientation_probe(*args, **kw)}
+            "per-sample math constant": lambda: probes.k5_const_math(*args, **kw)}
     ev = {k: ms if k == "full K5" else time_ms(torch, fn, 10) for k, fn in runs.items()}
     dv = {k: device_ms(torch, fn) for k, fn in runs.items()}
     print("[probe] K5 split, ms/launch (events / device): " + "; ".join(
@@ -355,10 +379,10 @@ def check_kernels(torch, cap, cfg, dev):
     plain = [k2.extrema_words_plain(d, b, cfg) for d, b in calls]
     ms = time_ms(torch, lambda: k2.extrema_words(dog, bounds, cfg), 10)
     plain_ms = time_ms(torch, lambda: k2.extrema_words_plain(dog, bounds, cfg), 2)
-    record("K2", outs[0], outs[1], plain, True, 0.0, ms, plain_ms,
-           dog.numel() * 4 + outs[0][0].numel() * 4, dog.numel() // 5 * 3 * 27,
+    work = k2_work(dog, bounds, cfg.scales_per_octave)
+    record("K2", outs[0], outs[1], plain, True, 0.0, ms, plain_ms, *work,
            note=f"; bit-exact at {len(calls)} octaves")
-    stream_probe_line(torch, k2, dog, outs[0][0], cfg, "K2", ms)
+    stream_probe_line(torch, k2, dog, bounds, cfg, "K2", ms, work[0])
     del outs, plain, calls
 
     # K3: the whole Newton walk, and K4 (one step) at the same candidates
@@ -449,7 +473,7 @@ def check_kernels(torch, cap, cfg, dev):
     plain_ms = time_ms(torch, lambda: k2.extrema_words_plain(
         dog1[None], bounds1, cfg), 2)
     record("K2′", [outs[0]], [outs[1]], [plain], True, 0.0, ms, plain_ms,
-           dog1.numel() * 4 + outs[0].numel() * 4, dog1.numel() // 5 * 3 * 27)
+           *k2_work(dog1[None], bounds1, cfg.scales_per_octave))
     del outs, plain
 
     # K5' and K6': the count-prefix window kernels at the per-frame octave 0
@@ -1086,10 +1110,10 @@ def check_storage_kernels(torch, extractor, frames, cfgs, cfg, dev, rows):
     plain = [k2.extrema_words_plain(d, b, cfg) for d, b in calls]
     ms = time_ms(torch, lambda: k2.extrema_words(dog, bounds, cfg), 10)
     plain_ms = time_ms(torch, lambda: k2.extrema_words_plain(dog, bounds, cfg), 2)
-    record("K2:bf16", outs[0], outs[1], plain, True, 0.0, ms, plain_ms,
-           nbytes_of(dog, outs[0][0]), dog.numel() // 5 * 3 * 27,
+    work = k2_work(dog, bounds, cfg.scales_per_octave)
+    record("K2:bf16", outs[0], outs[1], plain, True, 0.0, ms, plain_ms, *work,
            note=f"; bit-exact at {len(calls)} octaves")
-    stream_probe_line(torch, k2, dog, outs[0][0], cfg, "K2:bf16", ms)
+    stream_probe_line(torch, k2, dog, bounds, cfg, "K2:bf16", ms, work[0])
     del outs, plain, calls
     args, _ = cap["K4"]
     dog_flat, p, y, x, active = args[:5]

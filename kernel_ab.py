@@ -9,12 +9,15 @@ kernels), that checkout's `chip_smoke.py` kernel phases on the 1080p B=4
 batch: phase 3 (every kernel against its plain version, per-launch times,
 bounds) and phase 11a (the storage forms), then phase 4's per-kernel
 device time inside one main step (CUDA events around each wrapper call),
+the matcher's `match_ms` on that step's descriptors (phase 4's measure:
+CUDA events around the B cross-check matches, here over 20 repetitions),
 the median of 10 main steps (host clock around each, ending in a
 synchronize) and the peak memory of each stage of `extract_batch` in the
 default and the storage modes. Prints each run's lines and, at the end,
 one table of per-launch times by kernel and run and the step medians by
-run; with --out, writes every number to that JSON file. Comparing checkouts within one run, parent / change /
-change / parent, keeps the card and its power limit the same.
+run; with --out, writes every number to that JSON file. Comparing
+checkouts within one run, parent / change / change / parent, keeps the
+card and its power limit the same.
 """
 
 import json
@@ -85,6 +88,10 @@ def one(tree: str) -> dict:
         for attr, fn in saved.items():
             setattr(extractor, attr, fn)
     in_step = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in events.items()}
+    _, d, _ = step()
+    n = d.shape[0]
+    match_ms = cs.time_ms(torch, lambda: [match_dense(d[(i + 1) % n], d[i])
+                                          for i in range(n)], 20, 3)
     step_ms = []
     for _ in range(10):
         t0 = time.perf_counter()
@@ -98,7 +105,7 @@ def one(tree: str) -> dict:
             "device": torch.cuda.get_device_name(0), "build_s": build_s,
             "ptxas": ptxas, "rows": rows, "kernel_ms_in_step": in_step,
             "launches_in_step": {k: len(v) for k, v in events.items()},
-            "step_ms": step_ms,
+            "match_ms": match_ms, "step_ms": step_ms,
             "stage_peak_gb": stage_peaks}
 
 
@@ -140,6 +147,8 @@ def main(argv) -> int:
     for k in runs[-1]["kernel_ms_in_step"]:
         ms = " / ".join(f"{r['kernel_ms_in_step'].get(k, 0):.3f}" for r in runs)
         print(f"[kernel_ab] in one main step: {k} {ms} ms")
+    print("[kernel_ab] match_ms: " + " / ".join(
+        f"{r['match_ms']:.4f}" for r in runs))
     print("[kernel_ab] main step median ms: " + " / ".join(
         f"{statistics.median(r['step_ms']):.1f}" for r in runs))
     for r in runs:

@@ -43,19 +43,6 @@
 #define K2_ROWS 32
 #define K2_FULL 0xffffffffu
 
-// Four consecutive values of a row, widened to f32: one 16-byte load (f32)
-// or one 8-byte load (bf16, whose f32 value is its bits shifted up 16;
-// the streaming probe's bf16 loads).
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  float4 t = *reinterpret_cast<const float4*>(p);
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
-__device__ __forceinline__ void load4(const bf16* p, float (&v)[4]) {
-  uint2 t = *reinterpret_cast<const uint2*>(p);
-  v[0] = __uint_as_float(t.x << 16); v[1] = __uint_as_float(t.x & 0xffff0000u);
-  v[2] = __uint_as_float(t.y << 16); v[3] = __uint_as_float(t.y & 0xffff0000u);
-}
-
 // K2's arithmetic on the plane type. A thread holds 4 elements of a row
 // per plane: f32 values (4 columns, one 16-byte load), or bf16 pairs
 // packed in 32 bits (8 columns, one 16-byte load, max / min / compare two
@@ -69,7 +56,10 @@ template <> struct K2Ops<float> {
   static __device__ __forceinline__ E nan() { return __uint_as_float(0x7fc00000u); }
   static __device__ __forceinline__ E max(E a, E b) { return fmaxf(a, b); }
   static __device__ __forceinline__ E min(E a, E b) { return fminf(a, b); }
-  static __device__ __forceinline__ void load(const float* p, E (&v)[4]) { load4(p, v); }
+  static __device__ __forceinline__ void load(const float* p, E (&v)[4]) {
+    float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  }
   // the elements holding the columns left / right of each column of cur
   static __device__ __forceinline__ E left(E prev, E) { return prev; }
   static __device__ __forceinline__ E right(E, E next) { return next; }
@@ -322,45 +312,4 @@ SIFT_EXPORT int sift_extrema_words(const void* dog, int dog_t, int* words, int B
   if (dog_t == SIFT_F32)
     return launch_extrema((const float*)dog, words, B, n_s, Hp, Wp, y0, y1, x0, x1, stream);
   return (int)cudaErrorInvalidValue;
-}
-
-// Measurement probe (on no path): the bandwidth K2's access pattern can
-// reach. Reads every value of the S + 2 planes of each frame once (4
-// columns a thread: 16-byte loads in f32, 8-byte in bf16) and writes K2's
-// words (bit j: some plane > 0 at column 32w + j), with no stencil.
-template <typename T>
-__global__ void stream_probe_kernel(const T* __restrict__ dog, int* __restrict__ words,
-                                    int n_s, int Hp, int Wp) {
-  int x = (blockIdx.x * blockDim.x + threadIdx.x) * 4;
-  int y = blockIdx.y, f = blockIdx.z;
-  if (x >= Wp) return;  // whole warps: Wp % 128 == 0
-  long long plane = (long long)Hp * Wp;
-  const T* c = dog + (long long)f * (n_s + 2) * plane + (long long)y * Wp + x;
-  unsigned nib = 0;
-  for (int p = 0; p < n_s + 2; ++p) {
-    float v[4];
-    load4(c + p * plane, v);
-    for (int j = 0; j < 4; ++j) nib |= (v[j] > 0.0f ? 1u : 0u) << j;
-  }
-  int lane = threadIdx.x & 31;
-  unsigned wd = nib << (4 * (lane & 7));
-  wd |= __shfl_xor_sync(K2_FULL, wd, 1);
-  wd |= __shfl_xor_sync(K2_FULL, wd, 2);
-  wd |= __shfl_xor_sync(K2_FULL, wd, 4);
-  if ((lane & 7) == 0)
-    for (int s = 0; s < n_s; ++s)
-      words[((long long)(f * n_s + s) * Hp + y) * (Wp / 32) + x / 32] = (int)wd;
-}
-
-SIFT_EXPORT int sift_extrema_stream_probe(const void* dog, int dog_t, int* words, int B,
-                                          int n_s, int Hp, int Wp, cudaStream_t stream) {
-  if (Wp % 128 != 0) return (int)cudaErrorInvalidValue;
-  dim3 grid((Wp / 4 + 127) / 128, Hp, B);
-  if (dog_t == SIFT_BF16)
-    stream_probe_kernel<bf16><<<grid, 128, 0, stream>>>((const bf16*)dog, words, n_s, Hp, Wp);
-  else if (dog_t == SIFT_F32)
-    stream_probe_kernel<float><<<grid, 128, 0, stream>>>((const float*)dog, words, n_s, Hp, Wp);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
 }

@@ -55,6 +55,8 @@
 // "split", gather_dtype "bfloat16"): every kernel here is a template on the
 // plane type and widens each sample to f32 at the load, which is exact, so a
 // bf16 stack gives the histograms of its widened f32 copy.
+#include <mutex>
+
 #include "common.cuh"
 
 #define R_ORI_MAX 16
@@ -95,7 +97,7 @@ __device__ __forceinline__ void orientation_row(const T* g, int stride, int dy, 
     float gx = to_f32(g[dx + 1]) - to_f32(g[dx - 1]);
     float gy = to_f32(g[dx - stride]) - to_f32(g[dx + stride]);
     float mag = sqrtf(gx * gx + gy * gy);
-    int b = (int)round_half_away(bstep * atan2_f32(gy, gx));
+    int b = (int)round_half_away(bstep * atan2_f32<true>(gy, gx));
     if (b >= n_bins) b -= n_bins;
     if (b < 0) b += n_bins;
     acc[b] += weight * mag;
@@ -148,10 +150,7 @@ __device__ __forceinline__ void ori_store(float* win, const T (&v)[ORI_STAGE], i
     if (i0 + u * 32 + lane < wn * wn) win[i0 + u * 32 + lane] = to_f32(v[u]);
 }
 
-// CONST_MATH: the measurement probe (sift_orientation_probe), with the
-// per-sample math (weight table, magnitude, angle, bin) replaced by
-// constants; its outputs mean nothing.
-template <typename T, bool CONST_MATH>
+template <typename T>
 __global__ void __launch_bounds__(ORI_WARPS * 32) orientation_kernel(
     const T* __restrict__ gauss, int n_planes, int Hp, int Wp, const int* __restrict__ plane,
     const int* __restrict__ ys, const int* __restrict__ xs,
@@ -214,15 +213,13 @@ __global__ void __launch_bounds__(ORI_WARPS * 32) orientation_kernel(
         ori_store(win, pre, wn, i0, lane);
       }
       pre_j = -1;
-      if (!CONST_MATH) {
-        // tab[b (b + 1) / 2 + a] = weight at |dy|, |dx| = a <= b (either
-        // order); b = floor((sqrt(8i + 1) - 1) / 2) exactly: the sqrt is
-        // correctly rounded, exact at squares and >= 1 / 70 below the next
-        for (int i = lane; i < (ri + 1) * (ri + 2) / 2; i += 32) {
-          int b = (int)((sqrtf(8.0f * (float)i + 1.0f) - 1.0f) * 0.5f);
-          int a = i - b * (b + 1) / 2;
-          tab[i] = exp_f32_via_f64((float)(a * a + b * b) * gws);
-        }
+      // tab[b (b + 1) / 2 + a] = weight at |dy|, |dx| = a <= b (either
+      // order); b = floor((sqrt(8i + 1) - 1) / 2) exactly: the sqrt is
+      // correctly rounded, exact at squares and >= 1 / 70 below the next
+      for (int i = lane; i < (ri + 1) * (ri + 2) / 2; i += 32) {
+        int b = (int)((sqrtf(8.0f * (float)i + 1.0f) - 1.0f) * 0.5f);
+        int a = i - b * (b + 1) / 2;
+        tab[i] = exp_f32_via_f64((float)(a * a + b * b) * gws);
       }
       __syncwarp();
       // phase A: one record per sample, row-major
@@ -239,20 +236,15 @@ __global__ void __launch_bounds__(ORI_WARPS * 32) orientation_kernel(
           const float* g = win + (r + 1) * wn + c + 1;
           float gx = g[1] - g[-1];
           float gy = g[-wn] - g[wn];
-          if (CONST_MATH) {
-            v = gx + gy;
-            bn = c < n_bins ? c : n_bins - 1;
-          } else {
-            int ay = abs(dy), ax = abs(dx);
-            int lo = ay < ax ? ay : ax, hi = ay < ax ? ax : ay;
-            float weight = tab[hi * (hi + 1) / 2 + lo];
-            float mag = sqrtf(gx * gx + gy * gy);
-            int b = (int)round_half_away(bstep * atan2_f32<true>(gy, gx));
-            if (b >= n_bins) b -= n_bins;
-            if (b < 0) b += n_bins;
-            v = weight * mag;
-            bn = (unsigned)b;
-          }
+          int ay = abs(dy), ax = abs(dx);
+          int lo = ay < ax ? ay : ax, hi = ay < ax ? ax : ay;
+          float weight = tab[hi * (hi + 1) / 2 + lo];
+          float mag = sqrtf(gx * gx + gy * gy);
+          int b = (int)round_half_away(bstep * atan2_f32<true>(gy, gx));
+          if (b >= n_bins) b -= n_bins;
+          if (b < 0) b += n_bins;
+          v = weight * mag;
+          bn = (unsigned)b;
         }
         val[i] = v;
         bins[i] = (unsigned char)bn;
@@ -334,7 +326,7 @@ __global__ void __launch_bounds__(ORI_WARPS * 32) orientation_kernel(
   }
 }
 
-template <typename T, bool CONST_MATH>
+template <typename T>
 static int launch_orientation_t(const T* gauss, int n_planes, int Hp, int Wp,
                                 const int* plane, const int* y, const int* x,
                                 const float* scale, const unsigned char* live,
@@ -344,14 +336,17 @@ static int launch_orientation_t(const T* gauss, int n_planes, int Hp, int Wp,
                                 float bstep, cudaStream_t stream) {
   void (*kern)(const T*, int, int, int, const int*, const int*, const int*, const float*,
                const unsigned char*, const int*, float*, float*, int*, int, int, int, int,
-               int, int, float, float, float, float) = orientation_kernel<T, CONST_MATH>;
+               int, int, float, float, float, float) = orientation_kernel<T>;
   int smem = ORI_WARPS * ori_warp_floats(n_bins) * (int)sizeof(float);
   // the grid the card holds at once (no more than one warp per lane), with
   // all of the SM's shared memory; asked once per device and size (the
-  // queries cost more host time than a launch)
-  static int known_dev = -1, known_smem = -1, fit = 0;
+  // queries cost more host time than a launch), under a lock, since host
+  // threads may launch at once
+  static std::mutex mu;
+  static int known_dev = -1, known_smem = -1, known_fit = 0;
   int dev = 0;
   cudaGetDevice(&dev);
+  std::unique_lock<std::mutex> lock(mu);
   if (dev != known_dev || smem != known_smem) {
     int rc = (int)cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
                                        100);
@@ -362,10 +357,12 @@ static int launch_orientation_t(const T* gauss, int n_planes, int Hp, int Wp,
     int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, ORI_WARPS * 32, smem);
-    fit = sms * (per_sm > 0 ? per_sm : 1);
+    known_fit = sms * (per_sm > 0 ? per_sm : 1);
     known_dev = dev;
     known_smem = smem;
   }
+  int fit = known_fit;
+  lock.unlock();
   int need = (K + ORI_WARPS - 1) / ORI_WARPS;
   kern<<<need < fit ? need : fit, ORI_WARPS * 32, smem, stream>>>(
       gauss, n_planes, Hp, Wp, plane, y, x, scale, live, count, hist, ang, npk, K, h, w, pad,
@@ -386,10 +383,10 @@ static int launch_orientation(const void* gauss, int gauss_t, int n_planes, int 
     return (int)cudaErrorInvalidValue;
   if (K == 0) return 0;
   if (gauss_t == SIFT_BF16)
-    return launch_orientation_t<bf16, false>(
+    return launch_orientation_t<bf16>(
         (const bf16*)gauss, n_planes, Hp, Wp, plane, y, x, scale, live, count, hist, ang, npk,
         K, h, w, pad, n_bins, n_peaks, radius_factor, lambda_ori, ratio, bstep, stream);
-  return launch_orientation_t<float, false>(
+  return launch_orientation_t<float>(
       (const float*)gauss, n_planes, Hp, Wp, plane, y, x, scale, live, count, hist, ang, npk,
       K, h, w, pad, n_bins, n_peaks, radius_factor, lambda_ori, ratio, bstep, stream);
 }
@@ -410,25 +407,6 @@ SIFT_EXPORT int sift_orientation(const void* gauss, int gauss_t, int n_planes, i
                             nullptr, hist, ang,
                             npk, K, h, w, pad, n_bins, n_peaks, radius_factor,
                             lambda_ori, ratio, bstep, stream);
-}
-
-// Measurement probe (on no path): sift_orientation on f32 planes with the
-// per-sample math replaced by constants (mode 1).
-SIFT_EXPORT int sift_orientation_probe(const void* gauss, int gauss_t, int n_planes, int Hp,
-                                       int Wp, const int* plane, const int* y, const int* x,
-                                       const float* scale, const unsigned char* live,
-                                       float* hist,
-                                       float* ang, int* npk, int K, int h, int w, int pad,
-                                       int n_bins, int n_peaks, float radius_factor,
-                                       float lambda_ori, float ratio, float bstep, int mode,
-                                       cudaStream_t stream) {
-  if (mode != 1 || gauss_t != SIFT_F32 || n_bins < 1 || n_bins > MAX_BINS ||
-      n_peaks > MAX_PEAKS)
-    return (int)cudaErrorInvalidValue;
-  if (K == 0) return 0;
-  return launch_orientation_t<float, true>(
-      (const float*)gauss, n_planes, Hp, Wp, plane, y, x, scale, live, nullptr, hist, ang,
-      npk, K, h, w, pad, n_bins, n_peaks, radius_factor, lambda_ori, ratio, bstep, stream);
 }
 
 // K5': the same with lane i live iff i < *count (count: one int32 on the

@@ -70,26 +70,6 @@ def extrema_words(dog: torch.Tensor, bounds, cfg: SiftConfig):
     return words
 
 
-def stream_probe(dog: torch.Tensor, cfg: SiftConfig) -> torch.Tensor:
-    """Measurement aid, on no path and not counted: a kernel that reads
-    every value of dog (B, S+2, Hp, Wp) once (4 columns a thread: 16-byte
-    loads in f32, 8-byte in bf16) and writes words of K2's shape, with no
-    stencil; its time is the bandwidth K2's access pattern can reach on the
-    card."""
-    build.require_cuda("stream_probe", dog)
-    b, _, hp, wp = dog.shape
-    n_s = cfg.scales_per_octave
-    words = torch.empty((b, n_s, hp, wp // 32), dtype=torch.int32,
-                        device=dog.device)
-    fn = build.bind("extrema", "sift_extrema_stream_probe",
-                    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    build.check(fn(build.ptr(dog), build.dtype_code("stream_probe", dog),
-                   build.ptr(words), b, n_s, hp, wp, build.stream_ptr(dog)),
-                "stream_probe")
-    return words
-
-
 def extrema_words_single(dog: torch.Tensor, bounds, cfg: SiftConfig):
     """K2′ wrapper: one frame's dog (S+2, Hp, Wp) -> (S, Hp, Wp // 32)
     int32, served by the K2 kernel as a batch of one. The plain version for

@@ -155,10 +155,9 @@ def _as(t: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def _launch(gauss_flat, plane, y, x, kp_scale, live, count, h, w, pad, cfg,
-            name, probe: int = 0):
+            name):
     """One launch of the CUDA kernel: liveness from `live` (K5) or from
-    the device int `count` (K5′); `probe` 1 launches the measurement form
-    (orientation_probe)."""
+    the device int `count` (K5′)."""
     L, hp, wp = gauss_flat.shape
     # the kernel clamps plane / y / x as the plain version does; the lane
     # tensors pass as they come when already of the kernel's types
@@ -176,17 +175,16 @@ def _launch(gauss_flat, plane, y, x, kp_scale, live, count, h, w, pad, cfg,
     npk = torch.empty((K,), dtype=torch.int32, **kw)
     radius_factor, bstep = _params(cfg)
     entry = "sift_orientation" if count is None else "sift_orientation_prefix"
-    extra = ([ctypes.c_int], [probe]) if probe else ([], [])
-    fn = build.bind("orientation", entry + ("_probe" if probe else ""),
+    fn = build.bind("orientation", entry,
                     [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 8
-                    + [ctypes.c_int] * 6 + [ctypes.c_float] * 4 + extra[0]
+                    + [ctypes.c_int] * 6 + [ctypes.c_float] * 4
                     + [ctypes.c_void_p])
     rc = fn(build.ptr(gauss_flat), gauss_t, L, hp, wp, build.ptr(plane), build.ptr(y),
             build.ptr(x), build.ptr(kp_scale), build.ptr(flag), build.ptr(hist),
             build.ptr(ang), build.ptr(npk), K, h, w, pad, n_bins, N_PEAKS_CAP,
             float(radius_factor), float(np.float32(cfg.lambda_ori)),
             float(np.float32(cfg.orientation_localmax_ratio)), float(bstep),
-            *extra[1], build.stream_ptr(gauss_flat))
+            build.stream_ptr(gauss_flat))
     return (hist, ang, npk), rc
 
 
@@ -203,18 +201,6 @@ def orientation_hist_peaks(gauss_flat: torch.Tensor, plane, y, x, kp_scale,
     name = build.form("K5", gauss_flat)
     build.check(rc, f"{name} orientation")
     build.count_launch(name)
-    return out
-
-
-def orientation_probe(gauss_flat: torch.Tensor, plane, y, x, kp_scale, live,
-                      h: int, w: int, pad: int, cfg: SiftConfig):
-    """Measurement aid, on no path and not counted: K5's kernel with the
-    per-sample math (Gaussian weight, magnitude, angle, bin) replaced by
-    constants, keeping the window reads and the ordered adds. Its outputs
-    mean nothing; its time against K5's splits K5's."""
-    out, rc = _launch(gauss_flat, plane, y, x, kp_scale, live, None, h, w, pad,
-                      cfg, "orientation_probe", probe=1)
-    build.check(rc, "orientation_probe")
     return out
 
 

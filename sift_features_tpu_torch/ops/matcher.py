@@ -6,17 +6,15 @@ Counterpart of sift_features_tpu/ops/matcher.py (`_match_jit`, f32 path, and
 `torch.matmul` (the JAX package leaves it to XLA, not to a kernel of its
 own). Ties resolve to the lowest index, as `torch.argmin` does.
 
-The product is exact whatever the caller has set for TF32 (the legacy
-`torch.backends.cuda.matmul.allow_tf32` or the current `fp32_precision`,
-globally or for `cuda.matmul`), and the matcher reads and writes none of
-those process-wide switches, so it is safe to call from several threads:
-- u8 descriptors (what the extractor emits): each value up to 255 is an
-  exact TF32 (11 significant bits) and bf16 input, and every product and
-  partial sum is an integer below 2^24 (128 x 255^2 = 8,323,200), so the
-  f32 product is exact in any order, with or without TF32.
-- any other type: the distances run in float64, which no TF32 setting
-  touches (each product of two f32 values is exact there), and are rounded
-  once to f32.
+The distances run in float64 and are rounded once to f32. No TF32
+setting touches a float64 product, so the result is the same whatever the
+caller has set (the legacy `torch.backends.cuda.matmul.allow_tf32` or the
+current `fp32_precision`, globally or for `cuda.matmul`), and the matcher
+reads and writes none of those process-wide switches: it is safe to call
+from several threads. On u8 descriptors (what the extractor emits) every
+product and partial sum is an integer below 2^24 (128 x 255^2 =
+8,323,200), exact in float64 as in f32; on f32 input each product of two
+values is exact in float64 and only the sums round.
 """
 
 from __future__ import annotations
@@ -43,10 +41,8 @@ def match_dense(d_train: torch.Tensor, d_query: torch.Tensor,
                 cross_check: bool = True):
     """(T, D), (Q, D) -> (best_train (Q,) int64, distance (Q,) f32, keep (Q,)
     bool); keep marks mutual nearest neighbours when cross_check."""
-    exact = d_train.dtype == torch.uint8 and d_query.dtype == torch.uint8
-    wide = torch.float32 if exact else torch.float64
-    a = d_train.to(wide)
-    b = d_query.to(wide)
+    a = d_train.to(torch.float64)
+    b = d_query.to(torch.float64)
     aa = torch.sum(a * a, dim=1)
     bb = torch.sum(b * b, dim=1)
     d2 = (bb[:, None] + aa[None, :] - 2.0 * (b @ a.T)).to(torch.float32)

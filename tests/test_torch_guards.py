@@ -30,6 +30,7 @@ def _imported_modules(path):
 
 def test_port_imports_no_jax():
     files = sorted((ROOT / "sift_features_tpu_torch").rglob("*.py"))
+    files += sorted((ROOT / "probes").rglob("*.py"))   # chip_smoke.py imports them
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
     for f in files:
