@@ -21,7 +21,10 @@ Phases (any failure stops the script with a non-zero exit):
      that path builds with it; K10 and K11 at K3's
      candidates (K10 also against K4's rows, K11's merged rows against
      K3's), K8 and K7 on K5's and K6's lanes, one launch per scale bucket
-     (also against K5's and K6's raw rows);
+     (also against K5's and K6's raw rows). The refine kernels K3, K4, K10
+     and K11 also print their device time (device_ms: the wrapper's calls
+     captured in a CUDA graph, one replay timed), which below ~0.1 ms the
+     events around the wrapper cannot give;
   4. main path: extract_batch on the B=4 1080p batch, then per-frame top-1024
      by response and cross-check matching of frame i against frame i+1 (the
      step bench.py times), with launch counts reset just before and read
@@ -239,7 +242,7 @@ def make_record(torch, rows):
     and its plain version, prints its line, and keeps its numbers in
     rows[name]; a disagreement stops the script."""
     def record(name, out_k, out_k2, out_p, exact, tol, ms, plain_ms, nbytes,
-               ops, library_ms=None, note=""):
+               ops, library_ms=None, note="", dev_ms=None):
         outs = list(zip(out_k, out_k2, out_p))
         same = all(torch.equal(a, b) for a, b, _ in outs)
         err = max(float((a.float() - c.float()).abs().max()) if a.numel() else 0.0
@@ -247,15 +250,20 @@ def make_record(torch, rows):
         ok = same and (all(torch.equal(a, c) for a, _, c in outs) if exact
                        else err <= tol)
         b_ms, b_by = bound(nbytes, ops)
+        dev = ("" if dev_ms is None else f" (device {dev_ms:.4f})"
+               if isinstance(dev_ms, float) else f" (device time: {dev_ms})")
         print(f"[kernel] {name}: {'bit-exact' if exact else f'tol {tol:g}'} "
               f"vs plain -> max_abs_err {err:.3g}, run-to-run identical {same}; "
-              f"{ms:.4f} ms/launch, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
-              f"({b_by}){note}", flush=True)
+              f"{ms:.4f} ms/launch{dev}, plain {plain_ms:.3f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}){note}", flush=True)
         if not ok:
             raise SystemExit(f"chip_smoke: {name} disagrees with its plain version")
         rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": b_ms, "bound_by": b_by,
-                      "library_ms": library_ms}
+                      "library_ms": library_ms,
+                      "device_ms": dev_ms if isinstance(dev_ms, float) else None}
+        if isinstance(dev_ms, str):
+            rows[name]["device_ms_note"] = dev_ms
     return record
 
 
@@ -314,6 +322,36 @@ def device_ms(torch, fn, reps: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def refine_device_ms(torch, cap, cfg) -> dict:
+    """Device time (device_ms) per launch of K3, K4, K10 and K11 at K3's
+    octave-0 candidates, their inputs cast to int32 first so the wrappers
+    launch their kernel alone; a wrapper that cannot be captured in a CUDA
+    graph gets the reason instead of a number. Uses only wrapper names the
+    port has had since the kernels were ported, so kernel_ab.py can time
+    an older checkout with it."""
+    from sift_features_tpu_torch.ops.kernels import refine as kr
+
+    args, kw = cap["K3"]
+    dog_flat, pad, h, w = args[0], *args[5:8]
+    s0, y0, x0, valid = (t.int() for t in args[1:5])
+    poff = kw["plane_off"].int()
+    p = torch.clamp(s0, 1, cfg.scales_per_octave) + poff
+    g = kr.region_order(p, y0, x0, valid, *dog_flat.shape)
+    lay = kr.tile_layout(dog_flat, s0, y0, x0, valid, pad, cfg, poff)
+    fns = {"K3": lambda: kr.refine_walk(dog_flat, s0, y0, x0, valid, pad, h, w,
+                                        cfg, plane_off=poff),
+           "K4": lambda: kr.refine_step(dog_flat, p, y0, x0, valid, cfg),
+           "K10": lambda: kr.region_step(dog_flat, g, cfg),
+           "K11": lambda: kr.refine_tile_slots(dog_flat, lay, pad, h, w, cfg)}
+    out = {}
+    for k, fn in fns.items():
+        try:
+            out[k] = device_ms(torch, fn)
+        except RuntimeError as e:
+            out[k] = f"not capturable in a CUDA graph ({str(e).splitlines()[0]})"
+    return out
 
 
 def k5_probe_lines(torch, k5, args, kw, ms):
@@ -386,6 +424,7 @@ def check_kernels(torch, cap, cfg, dev):
     del outs, plain, calls
 
     # K3: the whole Newton walk, and K4 (one step) at the same candidates
+    refine_dev = refine_device_ms(torch, cap, cfg)
     args, kw = cap["K3"]
     dog_flat, s0, y0, x0, valid = args[:5]
     poff = kw["plane_off"]
@@ -399,7 +438,7 @@ def check_kernels(torch, cap, cfg, dev):
     plain_ms = time_ms(torch, lambda: refine(*args, **kw), 2)
     record("K3", [outs[0]], [outs[1]], [plain], True, 0.0, ms, plain_ms,
            k3_bytes, 150 * sum(active),
-           note=f"; active lanes per step {active} of {k}")
+           note=f"; active lanes per step {active} of {k}", dev_ms=refine_dev["K3"])
     p = torch.clamp(s0, 1, cfg.scales_per_octave) + poff
     k4_args = (dog_flat, p, y0, x0, valid, cfg)
     outs = [k34.refine_step(*k4_args) for _ in range(2)]
@@ -408,7 +447,7 @@ def check_kernels(torch, cap, cfg, dev):
     plain_ms = time_ms(torch, lambda: newton_step(*k4_args), 2)
     record("K4", [outs[0]], [outs[1]], [plain], True, 0.0, ms, plain_ms,
            k * (4 * 4 + 16 * 4) + 27 * 4 * active[0], 150 * active[0],
-           note=" (first step of the same candidates)")
+           note=" (first step of the same candidates)", dev_ms=refine_dev["K4"])
     del outs, plain
 
     # K5: orientation histograms + peaks. The plain version sums in the
@@ -506,7 +545,7 @@ def check_kernels(torch, cap, cfg, dev):
            4 * px + live.numel() * (5 * 4 + 128 * 4) + 4, 100 * smp,
            note=f"; count {n_live} of {live.numel()} lanes")
     del outs, plain
-    check_mode_kernels(torch, cap, cfg, record, rows)
+    check_mode_kernels(torch, cap, cfg, record, rows, refine_dev)
     return rows
 
 
@@ -515,12 +554,12 @@ def nan_safe(torch, t):
     return t.view(torch.int32)
 
 
-def check_mode_kernels(torch, cap, cfg, record, rows):
+def check_mode_kernels(torch, cap, cfg, record, rows, refine_dev):
     """Phase 3 for the kernels of the other modes: K10 and K11 at K3's
-    octave-0 candidates, K8 and K7 on K5's and K6's lanes."""
+    octave-0 candidates (refine_dev: their device times), K8 and K7 on
+    K5's and K6's lanes."""
     from sift_features_tpu_torch.ops.kernels import (
         descriptor as k6, orientation as k5, refine as kr)
-    from sift_features_tpu_torch.ops.extrema import newton_step
 
     args, kw = cap["K3"]
     dog_flat, s0, y0, x0, valid = args[:5]
@@ -544,20 +583,33 @@ def check_mode_kernels(torch, cap, cfg, record, rows):
     ms = time_ms(torch, lambda: kr.region_step(dog_flat, g, cfg), 10)
     wrapper_ms = time_ms(torch, lambda: kr.refine_step_region(*k10_args), 10)
     plain_ms = time_ms(torch, lambda: kr.region_step_plain(dog_flat, g, cfg), 2)
+    n_act = int(g["n_active"])
+    keys = g["key"][:n_act]
+    n_runs = int((keys[1:] != keys[:-1]).sum()) + 1 if n_act else 0
     record("K10", [nan_safe(torch, outs[0])], [nan_safe(torch, outs[1])],
            [nan_safe(torch, plain)], True, 0.0, ms, plain_ms,
            k * (4 * 4 + 16 * 4) + 27 * 4 * active[0], 150 * active[0],
-           note=f"; equal to K4 bit for bit; {int(g['n_runs'])} region runs "
-                f"for {int(g['n_active'])} active lanes; with the grouping "
-                f"(sort + run compaction) {wrapper_ms:.4f} ms")
+           note=f"; equal to K4 bit for bit; {n_runs} region runs for {n_act} "
+                f"active lanes; with the region sort {wrapper_ms:.4f} ms",
+           dev_ms=refine_dev["K10"])
     rows["K10"]["wrapper_ms"] = wrapper_ms
     del outs, plain, k4
 
     # K11: the tile walk on the grouped slots (rows and escape flags against
-    # the plain version), and the merged rows against K3's
+    # the plain version), and the merged rows against K3's. The plain
+    # version's Newton steps count the active walks per step, for the bound
     lay = kr.tile_layout(dog_flat, s0, y0, x0, valid, pad, cfg, poff)
     outs = [kr.refine_tile_slots(dog_flat, lay, pad, h, w, cfg) for _ in range(2)]
-    plain = kr.refine_tile_plain(dog_flat, lay, pad, h, w, cfg)
+    walks, newton = [], kr.newton_step
+
+    def counted(d, p_, y_, x_, act, c):
+        walks.append(int(act.sum()))
+        return newton(d, p_, y_, x_, act, c)
+    kr.newton_step = counted
+    try:
+        plain = kr.refine_tile_plain(dog_flat, lay, pad, h, w, cfg)
+    finally:
+        kr.newton_step = newton
     merged = kr.refine_tile(*args, **kw)
     k3 = kr.refine_walk(*args, **kw)
     if not torch.equal(merged, k3):
@@ -568,11 +620,15 @@ def check_mode_kernels(torch, cap, cfg, record, rows):
                                                      cfg), 10)
     plain_ms = time_ms(torch, lambda: kr.refine_tile_plain(dog_flat, lay, pad,
                                                            h, w, cfg), 2)
+    # every slot's inputs (s, y, x, a) and row, every block's (r0, c0, pb,
+    # active), each walk's cube per step
     record("K11", [outs[0]], [outs[1]], [plain], True, 0.0, ms, plain_ms,
-           k * (5 * 4 + 16 * 4) + 27 * 4 * sum(active), 150 * sum(active),
+           lay.T_cap * (4 * 4 + 16 * 4) + lay.nb * 4 * 4 + 27 * 4 * sum(walks),
+           150 * sum(walks),
            note=f"; merged rows equal K3's; {n_esc} escaped walks of "
                 f"{int(valid.sum())} candidates; {n_blocks} of {lay.nb} "
-                f"blocks active, {lay.T_cap} slots")
+                f"blocks active, {lay.T_cap} slots; active walks per step "
+                f"{walks}", dev_ms=refine_dev["K11"])
     rows["K11"]["escapes"] = n_esc
     del outs, plain, merged, k3
 

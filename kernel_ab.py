@@ -7,7 +7,10 @@ Runs, for each directory in the order given and each in a process of its
 own (so each imports its own `sift_features_tpu_torch` and builds its own
 kernels), that checkout's `chip_smoke.py` kernel phases on the 1080p B=4
 batch: phase 3 (every kernel against its plain version, per-launch times,
-bounds) and phase 11a (the storage forms), then phase 4's per-kernel
+bounds) and phase 11a (the storage forms), the device time of the refine
+kernels K3, K4, K10 and K11 (`refine_device_ms` of the chip_smoke.py
+beside this script, run on that checkout's package: CUDA graph replays of
+the wrappers), then phase 4's per-kernel
 device time inside one main step (CUDA events around each wrapper call),
 the matcher's `match_ms` on that step's descriptors (phase 4's measure:
 CUDA events around the B cross-check matches, here over 20 repetitions),
@@ -30,6 +33,13 @@ import time
 
 def one(tree: str) -> dict:
     """The kernel phases of the checkout at `tree`, in this process."""
+    import importlib.util
+
+    here = importlib.util.spec_from_file_location(
+        "chip_smoke_here", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                        "chip_smoke.py"))
+    cs_here = importlib.util.module_from_spec(here)
+    here.loader.exec_module(cs_here)
     tree = os.path.abspath(tree)
     os.chdir(tree)
     sys.path.insert(0, tree)
@@ -51,11 +61,12 @@ def one(tree: str) -> dict:
     build_s = time.perf_counter() - t0
     ptxas = [f"{src}: {ln.strip()}" for src, log in logs.items()
              for ln in log.splitlines()
-             if src in ("pyramid", "descriptor") and (
+             if src in ("pyramid", "descriptor", "refine") and (
                  "registers" in ln or "spill" in ln or "Compiling entry" in ln)]
     frames = cs.make_frames(cs.B)
     cap = cs.capture_octave0(torch, extractor, frames, dev)
     rows = cs.check_kernels(torch, cap, cfg, dev)
+    refine_dev = cs_here.refine_device_ms(torch, cap, cfg)
     del cap
     torch.cuda.empty_cache()
     cfgs = {m: dataclasses.replace(cfg, **f) for m, (f, _, _) in cs.STORAGE.items()}
@@ -103,7 +114,8 @@ def one(tree: str) -> dict:
         stage_peaks[mode] = cs.stage_peaks(torch, extractor, lambda c=c: step(c))
     return {"tree": tree, "card": cs.nvidia_smi_line(),
             "device": torch.cuda.get_device_name(0), "build_s": build_s,
-            "ptxas": ptxas, "rows": rows, "kernel_ms_in_step": in_step,
+            "ptxas": ptxas, "rows": rows, "refine_device_ms": refine_dev,
+            "kernel_ms_in_step": in_step,
             "launches_in_step": {k: len(v) for k, v in events.items()},
             "match_ms": match_ms, "step_ms": step_ms,
             "stage_peak_gb": stage_peaks}
@@ -144,6 +156,10 @@ def main(argv) -> int:
         bd = " / ".join(f"{r['rows'][k]['bound_ms']:.4f} ({r['rows'][k]['bound_by']})"
                         if k in r["rows"] else "-" for r in runs)
         print(f"[kernel_ab] {k:9s} {ms}  bound {bd}")
+    for k in runs[-1]["refine_device_ms"]:
+        ms = " / ".join(f"{v:.4f}" if isinstance(v, float) else str(v) for v in
+                        (r["refine_device_ms"][k] for r in runs))
+        print(f"[kernel_ab] {k:9s} device ms per launch {ms}")
     for k in runs[-1]["kernel_ms_in_step"]:
         ms = " / ".join(f"{r['kernel_ms_in_step'].get(k, 0):.3f}" for r in runs)
         print(f"[kernel_ab] in one main step: {k} {ms} ms")

@@ -9,16 +9,24 @@
 // (sift_refine_tile) are the region and tile modes; their notes are at
 // their kernels below. All four run the same __device__ function
 // `newton_at`, whose f32 operations follow ops/extrema.py:_newton_from_cubes
-// in order, so all equal the plain version bit for bit.
+// in order, so all equal the plain version bit for bit; K3 and K11 also
+// share the walk around it (`newton_walk`).
 //
-// Bound on the H100: latency, not bytes or flops. Each candidate reads its
-// 27-value cube (108 B) per step and does ~150 flops; a 1080p B=4 octave 0
-// has at most 131072 candidate lanes, ~14 MB of cube reads in all. One
-// thread per candidate reads its cube straight from the flat DoG
+// Design on the H100: one thread per candidate (K3, K4, K10) or per slot
+// (K11), each reading its 27-value cube straight from the flat DoG
 // (B * (S+2), H_pad, W_pad) through L1/L2, with the frame's plane offset.
-// Reading from global memory has no window limit, so unlike the TPU walk
-// kernel (whose region windows let ~1.4% of walks escape to K4) this K3
-// never escapes: column 9 of its rows is always 0.
+// None stages a window in shared memory: the TPU kernels shared one DMA'd
+// VMEM window among co-located candidates, but on this card a candidate's
+// cube is 108 B against a window of kilobytes, and candidates that sit in
+// neighbouring threads (K10's region order, K11's slot order) share cache
+// lines anyway. Rows are written with four 16-byte stores.
+//
+// Bound on the H100: the bytes, each read and written once. A candidate
+// reads its cube (108 B) per step and its inputs, and writes a 64-byte
+// row; ~150 flops a step. A 1080p B=4 octave 0 has at most 131072
+// candidate lanes. Reading from global memory has no window limit, so
+// unlike the TPU walk kernel (whose region windows let ~1.4% of walks
+// escape to K4) K3 never escapes: column 9 of its rows is always 0.
 //
 // A bf16 DoG (storage_dtype "bfloat16") goes to K4 alone, as the JAX
 // dispatch sends a non-f32 stack to the step loop in every refine_mode
@@ -26,8 +34,6 @@
 // f32). `newton_at` is a template on the stack type and widens each cube
 // value to f32 at the load; only K4 is built for bf16.
 #include "common.cuh"
-
-#include <limits.h>
 
 struct NewtonParams {
   float contrast_threshold;
@@ -109,6 +115,30 @@ __device__ NewtonResult newton_at(const T* __restrict__ dog, long long plane,
   return r;
 }
 
+// The row of one Newton step: ok | step_s | step_y | step_x | off_s |
+// off_y | off_x | response | keep | 0...
+__device__ __forceinline__ void step_row(const NewtonResult& r, float vals[16]) {
+  vals[0] = r.ok ? 1.0f : 0.0f;
+  vals[1] = (float)r.step_s;
+  vals[2] = (float)r.step_y;
+  vals[3] = (float)r.step_x;
+  vals[4] = r.off_s;
+  vals[5] = r.off_y;
+  vals[6] = r.off_x;
+  vals[7] = r.response;
+  vals[8] = r.keep ? 1.0f : 0.0f;
+}
+
+// One 64-byte row as four 16-byte stores (rows are 64-byte aligned: the
+// wrappers' outputs are fresh (n, 16) f32 tensors).
+__device__ __forceinline__ void store_row(float* __restrict__ row, const float v[16]) {
+  float4* r4 = reinterpret_cast<float4*>(row);
+  r4[0] = make_float4(v[0], v[1], v[2], v[3]);
+  r4[1] = make_float4(v[4], v[5], v[6], v[7]);
+  r4[2] = make_float4(v[8], v[9], v[10], v[11]);
+  r4[3] = make_float4(v[12], v[13], v[14], v[15]);
+}
+
 // K4: rows (K, 16) = ok | step_s | step_y | step_x | off_s | off_y | off_x |
 // response | keep | 0...; all zero where active == 0. p/y/x are clamped
 // into [1, n_planes-2] x [1, Hp-2] x [1, Wp-2] like the plain gather.
@@ -129,45 +159,38 @@ __global__ void refine_step_kernel(const T* __restrict__ dog, int n_planes,
     NewtonResult r = newton_at(dog, (long long)Hp * Wp, Wp,
                                clampi(p[k], 1, n_planes - 2),
                                clampi(y[k], 1, Hp - 2), clampi(x[k], 1, Wp - 2), prm);
-    vals[0] = r.ok ? 1.0f : 0.0f;
-    vals[1] = (float)r.step_s;
-    vals[2] = (float)r.step_y;
-    vals[3] = (float)r.step_x;
-    vals[4] = r.off_s;
-    vals[5] = r.off_y;
-    vals[6] = r.off_x;
-    vals[7] = r.response;
-    vals[8] = r.keep ? 1.0f : 0.0f;
+    step_row(r, vals);
   }
   for (int j = 0; j < 16; ++j) row[j] = vals[j];
 }
 
-// K3: rows (K, 16) = ok | s | y | x | off_s | off_y | off_x | response |
-// keep | escaped (0) | 0...; result columns 4-8 are zero where the lane did
-// not converge. Positions are padded coordinates; the lane's DoG plane is
-// clamp(s, 1, n_scales) + plane_off[k]. The bookkeeping is that of
-// ops/extrema.py:refine (lib.rs:525-603): a lane converges when all three
+// Where a walk reads its cubes: DoG plane clamp(clamp(s, 1, n_scales) +
+// pbase, plo, phi), row clamp(y, ylo, yhi), column clamp(x, xlo, xhi).
+struct WalkBox {
+  int pbase, plo, phi, ylo, yhi, xlo, xhi;
+};
+
+// One candidate's whole walk from (s, y, x), with the bookkeeping of
+// ops/extrema.py:refine (lib.rs:525-603): it converges when all three
 // offsets are < 0.5, otherwise moves by the rounded offsets and dies when
-// it leaves [border, size - border) or the scale range [1, n_scales].
-__global__ void refine_walk_kernel(const float* __restrict__ dog, int n_planes,
-                                   int Hp, int Wp, const int* __restrict__ s0,
-                                   const int* __restrict__ y0,
-                                   const int* __restrict__ x0,
-                                   const int* __restrict__ valid,
-                                   const int* __restrict__ plane_off,
-                                   float* __restrict__ out, int K, int pad, int h,
-                                   int w, int border, int n_scales, int max_steps,
-                                   NewtonParams prm) {
-  int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;
-  int s = s0[k], y = y0[k], x = x0[k];
-  bool conv = false, dead = !valid[k];
+// it leaves [border, size - border) or the scale range [1, n_scales]. A
+// walk that is not `live` does not move. ESCAPE (K11): the walk also stops,
+// and sets column 9, when it moves outside [ylo, yhi] x [xlo, xhi].
+// vals: ok | s | y | x | off_s | off_y | off_x | response | keep | escaped |
+// 0...; columns 4-8 are zero where the walk did not converge.
+template <bool ESCAPE>
+__device__ __forceinline__ void newton_walk(const float* __restrict__ dog,
+                                            long long plane, int Wp, int s, int y,
+                                            int x, bool live, WalkBox box, int pad,
+                                            int h, int w, int border, int n_scales,
+                                            int max_steps, NewtonParams prm,
+                                            float vals[16]) {
+  bool conv = false, dead = !live, esc = false;
   float fields[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  long long plane = (long long)Hp * Wp;
-  for (int it = 0; it < max_steps && !(conv || dead); ++it) {
-    int p = clampi(clampi(s, 1, n_scales) + plane_off[k], 1, n_planes - 2);
-    NewtonResult r = newton_at(dog, plane, Wp, p, clampi(y, 1, Hp - 2),
-                               clampi(x, 1, Wp - 2), prm);
+  for (int it = 0; it < max_steps && !(conv || dead || esc); ++it) {
+    int p = clampi(clampi(s, 1, n_scales) + box.pbase, box.plo, box.phi);
+    NewtonResult r = newton_at(dog, plane, Wp, p, clampi(y, box.ylo, box.yhi),
+                               clampi(x, box.xlo, box.xhi), prm);
     if (r.ok) {
       conv = true;
       fields[0] = r.off_s;
@@ -181,15 +204,39 @@ __global__ void refine_walk_kernel(const float* __restrict__ dog, int n_planes,
       x += r.step_x;
       dead = s < 1 || s > n_scales || x - pad < border || x - pad >= w - border ||
              y - pad < border || y - pad >= h - border;
+      if (ESCAPE)
+        esc = !dead && (y < box.ylo || y > box.yhi || x < box.xlo || x > box.xhi);
     }
   }
-  float* row = out + (long long)k * 16;
-  row[0] = conv ? 1.0f : 0.0f;
-  row[1] = (float)s;
-  row[2] = (float)y;
-  row[3] = (float)x;
-  for (int j = 0; j < 5; ++j) row[4 + j] = fields[j];
-  for (int j = 9; j < 16; ++j) row[j] = 0.0f;
+  vals[0] = conv ? 1.0f : 0.0f;
+  vals[1] = (float)s;
+  vals[2] = (float)y;
+  vals[3] = (float)x;
+  for (int j = 0; j < 5; ++j) vals[4 + j] = fields[j];
+  vals[9] = esc ? 1.0f : 0.0f;
+  for (int j = 10; j < 16; ++j) vals[j] = 0.0f;
+}
+
+// K3: rows (K, 16) of `newton_walk` from (s0, y0, x0), live where valid;
+// positions are padded coordinates, the DoG plane clamp(s, 1, n_scales) +
+// plane_off[k] kept in [1, n_planes-2] and the position in the stack's
+// interior, so the walk never escapes.
+__global__ void refine_walk_kernel(const float* __restrict__ dog, int n_planes,
+                                   int Hp, int Wp, const int* __restrict__ s0,
+                                   const int* __restrict__ y0,
+                                   const int* __restrict__ x0,
+                                   const int* __restrict__ valid,
+                                   const int* __restrict__ plane_off,
+                                   float* __restrict__ out, int K, int pad, int h,
+                                   int w, int border, int n_scales, int max_steps,
+                                   NewtonParams prm) {
+  int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= K) return;
+  const WalkBox box{plane_off[k], 1, n_planes - 2, 1, Hp - 2, 1, Wp - 2};
+  float vals[16];
+  newton_walk<false>(dog, (long long)Hp * Wp, Wp, s0[k], y0[k], x0[k], valid[k] != 0,
+                     box, pad, h, w, border, n_scales, max_steps, prm, vals);
+  store_row(out + (long long)k * 16, vals);
 }
 
 // dog (n_planes, Hp, Wp) of type dog_t (f32 or bf16).
@@ -226,23 +273,24 @@ SIFT_EXPORT int sift_refine_walk(const float* dog, int n_planes, int Hp, int Wp,
 }
 
 // ---------------------------------------------------------------------------
-// K10 (sift_refine_region): one Newton step for all candidates, with the
-// cube windows of co-located candidates shared. Replaces
-// ops/pallas/refine_region_kernel.py:_region_call (via refine_step_region,
-// _kernel), refine_mode="region".
+// K10 (sift_refine_region): one Newton step for all candidates, taken in
+// region order. Replaces ops/pallas/refine_region_kernel.py:_region_call
+// (via refine_step_region, _kernel), refine_mode="region".
 //
-// The wrapper (ops/kernels/refine.py) sorts the active lanes stably by the
-// JAX region key (plane, 8-row band, 128-column band of the clamped
-// position; inactive lanes last) and marks where each region's run starts,
-// on the card with no host sync. One block serves one run: it takes the
-// bounding box of its candidates' positions (at most 8 x 128 cells, one
-// plane), stages the cube window of that box on planes s-1..s+1 in shared
-// memory once (at most 3 x 10 x 130 f32, 15.6 KB), and each of its threads
-// runs `newton_at` on that window for one candidate, writing the row to the
-// candidate's original index. Blocks past the run count exit at once.
-// Staging only the box keeps the bytes near K4's when a region holds one
-// or two candidates, the common case: chip_smoke.py counts 25,366 active
-// lanes in 21,761 runs at the 1080p B=4 octave 0.
+// The wrapper (ops/kernels/refine.py:region_order) sorts the lanes stably
+// by the JAX region key (plane, 8-row band, 128-column band of the clamped
+// position; inactive lanes last), on the card with no host sync. Thread j
+// of ceil(K / 128) blocks takes the j-th lane of that order: if j is below
+// the active count it runs `newton_at` on the DoG in global memory, and it
+// writes the lane's row (zero for an inactive lane) to the lane's original
+// index perm[j], so every row is written. The sort puts a region's lanes in
+// neighbouring threads, whose cube loads then share cache lines.
+//
+// Why no window: the first design staged the bounding box of each region
+// run in shared memory, one block per possible run, min(K, n_regions) =
+// 131,072 blocks at the 1080p B=4 octave 0, for 25,366 active lanes in
+// 21,761 runs (1.17 lanes a run): the grid and the three barriers of each
+// block, not the bytes, set its time (0.143 ms, NVIDIA H100 80GB HBM3).
 //
 // The result equals K4's rows for the same inputs, bit for bit in every
 // column, non-finite offsets included (no sanitising: the TPU kernel zeroes
@@ -252,185 +300,98 @@ SIFT_EXPORT int sift_refine_walk(const float* dog, int n_planes, int Hp, int Wp,
 // Hp-16, which an active lane never reaches (it lies inside the image
 // border, at least PAD_DESC = 56 rows above the bottom of the stack).
 //
-// Bound on the H100: like K4, latency of the few reads per candidate; the
-// staged box adds one pass over at most 3 x 10 x 130 f32 per region.
-#define REGION_THREADS 128
-#define REGION_ROWS 8
-#define REGION_COLS 128
-
-__global__ void __launch_bounds__(REGION_THREADS) refine_region_kernel(
+// Bound on the H100: the bytes, as K4's: each lane's clamped position,
+// index and row (K x (4 x 4 + 16 x 4) B) and each active lane's cube.
+__global__ void __launch_bounds__(128) refine_region_kernel(
     const float* __restrict__ dog, int Hp, int Wp, const int* __restrict__ sp,
     const int* __restrict__ yp, const int* __restrict__ xp,
-    const int* __restrict__ perm, const int* __restrict__ run_start,
-    const int* __restrict__ n_runs, const int* __restrict__ n_active,
-    float* __restrict__ out, NewtonParams prm) {
-  __shared__ float win[3 * (REGION_ROWS + 2) * (REGION_COLS + 2)];
-  __shared__ int box[4];
-  const int b = blockIdx.x, t = threadIdx.x;
-  const int nr = *n_runs;
-  if (b >= nr) return;
-  const int start = run_start[b];
-  const int end = b + 1 < nr ? run_start[b + 1] : *n_active;
-  if (t == 0) {
-    box[0] = INT_MAX;
-    box[1] = INT_MIN;
-    box[2] = INT_MAX;
-    box[3] = INT_MIN;
-  }
-  __syncthreads();
-  int ymn = INT_MAX, ymx = INT_MIN, xmn = INT_MAX, xmx = INT_MIN;
-  for (int j = start + t; j < end; j += blockDim.x) {
-    ymn = min(ymn, yp[j]);
-    ymx = max(ymx, yp[j]);
-    xmn = min(xmn, xp[j]);
-    xmx = max(xmx, xp[j]);
-  }
-  atomicMin(&box[0], ymn);
-  atomicMax(&box[1], ymx);
-  atomicMin(&box[2], xmn);
-  atomicMax(&box[3], xmx);
-  __syncthreads();
-  const int y0 = box[0] - 1, x0 = box[2] - 1;
-  const int rows = box[1] - box[0] + 3, cols = box[3] - box[2] + 3;
-  const int per_plane = rows * cols;
-  const long long plane = (long long)Hp * Wp;
-  const float* src = dog + (long long)(sp[start] - 1) * plane + (long long)y0 * Wp + x0;
-  for (int i = t; i < 3 * per_plane; i += blockDim.x) {
-    int p = i / per_plane;
-    int rem = i - p * per_plane;
-    int r = rem / cols;
-    win[i] = src[p * plane + (long long)r * Wp + (rem - r * cols)];
-  }
-  __syncthreads();
-  for (int j = start + t; j < end; j += blockDim.x) {
-    NewtonResult r = newton_at(win, per_plane, cols, 1, yp[j] - y0, xp[j] - x0, prm);
-    float* row = out + (long long)perm[j] * 16;
-    row[0] = r.ok ? 1.0f : 0.0f;
-    row[1] = (float)r.step_s;
-    row[2] = (float)r.step_y;
-    row[3] = (float)r.step_x;
-    row[4] = r.off_s;
-    row[5] = r.off_y;
-    row[6] = r.off_x;
-    row[7] = r.response;
-    row[8] = r.keep ? 1.0f : 0.0f;
-    for (int c = 9; c < 16; ++c) row[c] = 0.0f;
-  }
+    const int* __restrict__ perm, const int* __restrict__ n_active,
+    float* __restrict__ out, int K, NewtonParams prm) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= K) return;
+  float vals[16];
+  for (int c = 0; c < 16; ++c) vals[c] = 0.0f;
+  if (j < *n_active)
+    step_row(newton_at(dog, (long long)Hp * Wp, Wp, sp[j], yp[j], xp[j], prm), vals);
+  store_row(out + (long long)perm[j] * 16, vals);
 }
 
 // dog (n_planes, Hp, Wp); sp/yp/xp/perm (K,) int32: the clamped positions
-// of the lanes in region order and their original indices; run_start
-// (n_blocks,) int32; n_runs and n_active: one int32 each on the device.
-// out (K, 16) must hold zeros: rows of inactive lanes are not written.
+// of the lanes in region order (active lanes first) and their original
+// indices; n_active: one int32 on the device. Writes all K rows of out.
 SIFT_EXPORT int sift_refine_region(const float* dog, int Hp, int Wp, const int* sp,
                                    const int* yp, const int* xp, const int* perm,
-                                   const int* run_start, const int* n_runs,
-                                   const int* n_active, float* out, int n_blocks,
+                                   const int* n_active, float* out, int K,
                                    float contrast_threshold, float edge_threshold,
                                    float n_scales, cudaStream_t stream) {
-  if (n_blocks == 0) return 0;
+  if (K == 0) return 0;
   NewtonParams prm{contrast_threshold, edge_threshold, n_scales};
-  refine_region_kernel<<<n_blocks, REGION_THREADS, 0, stream>>>(
-      dog, Hp, Wp, sp, yp, xp, perm, run_start, n_runs, n_active, out, prm);
+  refine_region_kernel<<<(K + 127) / 128, 128, 0, stream>>>(
+      dog, Hp, Wp, sp, yp, xp, perm, n_active, out, K, prm);
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// K11 (sift_refine_tile): the whole <= max_interpolation_steps walk of a
-// block of tile-grouped candidates from a shared-memory window. Replaces
-// ops/pallas/refine_tile_kernel.py:_refine_tile_call (via refine_tile_tpu,
-// _kernel), refine_mode="tile".
+// K11 (sift_refine_tile): the whole <= max_interpolation_steps walk of
+// tile-grouped candidates, each walk held inside its block's window.
+// Replaces ops/pallas/refine_tile_kernel.py:_refine_tile_call (via
+// refine_tile_tpu, _kernel), refine_mode="tile".
 //
 // utils/region_group.py groups the candidates by (frame, 32-row x 64-column
-// region) and pads each region to blocks of bk slots. One block stages the
-// window of its region on ALL S+2 DoG planes, the region plus an 8-cell
-// margin on every side, (S+2) x 48 x 80 f32 = 76,800 B for S = 3. Then each
-// slot's thread walks its candidate with `newton_at` on that window, with
-// K3's bookkeeping, and writes the final row. A walk that moves outside
-// the window's interior [1, LR-2] x [1, LW-2] stops and sets column 9
-// (escaped); refine_tile (ops/kernels/refine.py) re-refines escaped lanes
-// from their original positions with the K4 loop and merges them
-// (merge_escaped). A block with no real candidate exits at once; rows of
-// empty slots stay zero.
+// region) and pads each region to blocks of bk slots; block b's window is
+// rows r0_b + [0, LR), columns c0_b + [0, LW) of DoG planes pb_b + [0, S+2),
+// the region plus an 8-cell margin (48 x 80). One thread per slot over
+// ceil(T_cap / 128) blocks: a slot of a block with no real candidate, or an
+// empty slot, writes a zero row; a live slot walks its candidate with K3's
+// `newton_walk`, its cubes read from the DoG in global memory at plane
+// pb_b + clamp(s, 1, S) and position r0_b + clamp(y - r0_b, 1, LR-2),
+// c0_b + clamp(x - c0_b, 1, LW-2): the values the window held at the same
+// offsets, so the rows are those of a walk on the window. A walk that moves
+// outside the window's interior [1, LR-2] x [1, LW-2] stops and sets
+// column 9 (escaped); refine_tile (ops/kernels/refine.py) re-refines
+// escaped lanes from their original positions with the K4 loop and merges
+// them (merge_escaped). utils/region_group.py clamps every window into the
+// stack, so no read leaves it (tests/test_torch_modes.py holds that).
 //
-// Geometry: the TPU window (5 x 160 x 768 f32, 2.4 MB of VMEM) does not fit
-// in the 227 KB of shared memory a block may use. A 32 x 64 region with an
-// 8-cell margin keeps two blocks on an SM (2 x 76.8 KB) and a margin wider
-// than the usual walk (steps of one cell, at most 5); a larger region would
-// share each window among more candidates but leave one block per SM. The
-// TPU kernel also escapes any |step| > 7, the limit of its 4-bit step
-// field; this kernel stores no packed field, so it has no such rule.
+// Why no window is staged: the first design copied each active block's
+// window on all S+2 planes into shared memory, (S+2) x 48 x 80 f32 =
+// 76.8 KB, to serve about two candidates with 16 of its 256 threads: at the
+// 1080p B=4 octave 0, ~10^4 active blocks staged ~1 GB for walks that need
+// ~3 MB of cubes (1.30 ms, NVIDIA H100 80GB HBM3). The slots of one region
+// are neighbouring threads, so L1/L2 share their cube lines instead. The
+// 48 x 80 window stays as the escape geometry, which the plain version and
+// the tests share. The TPU kernel also escapes any |step| > 7, the limit of
+// its 4-bit step field; this kernel stores no packed field, so it has no
+// such rule.
 //
-// Bound on the H100: the window bytes. Each block reads (S+2) x LR x LW
-// f32 for its <= bk candidates, several times the cubes they need: the
-// price of serving the walk from shared memory. The walk itself is K3's.
-#define TILE_THREADS 256
-
-__global__ void __launch_bounds__(TILE_THREADS) refine_tile_kernel(
+// Bound on the H100: the bytes. Every slot's inputs and row, T_cap x (4 x 4
+// + 16 x 4) B, the block arrays, nb x 4 x 4 B, and the walks' cubes, 108 B a
+// step; the rows of the empty slots (~94% of T_cap at 1080p) are most of it.
+__global__ void __launch_bounds__(128) refine_tile_kernel(
     const float* __restrict__ dog, int Hp, int Wp, const int* __restrict__ s_slot,
     const int* __restrict__ y_slot, const int* __restrict__ x_slot,
     const int* __restrict__ a_slot, const int* __restrict__ r0_b,
     const int* __restrict__ c0_b, const int* __restrict__ pb_b,
-    const int* __restrict__ active_b, float* __restrict__ out, int bk, int LR,
+    const int* __restrict__ active_b, float* __restrict__ out, int T, int bk, int LR,
     int LW, int pad, int h, int w, int border, int n_scales, int max_steps,
     NewtonParams prm) {
-  extern __shared__ float win[];  // (n_scales + 2, LR, LW)
-  const int blk = blockIdx.x;
-  if (active_b[blk] == 0) return;
-  const int r0 = r0_b[blk], c0 = c0_b[blk];
-  const int per_plane = LR * LW;
-  const long long plane = (long long)Hp * Wp;
-  const float* src = dog + (long long)pb_b[blk] * plane + (long long)r0 * Wp + c0;
-  for (int i = threadIdx.x; i < (n_scales + 2) * per_plane; i += blockDim.x) {
-    int p = i / per_plane;
-    int rem = i - p * per_plane;
-    int r = rem / LW;
-    win[i] = src[p * plane + (long long)r * Wp + (rem - r * LW)];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= T) return;
+  const int blk = i / bk;
+  float vals[16];
+  for (int j = 0; j < 16; ++j) vals[j] = 0.0f;
+  if (active_b[blk] != 0 && a_slot[i] != 0) {
+    const int r0 = r0_b[blk], c0 = c0_b[blk], pb = pb_b[blk];
+    const WalkBox box{pb, pb + 1, pb + n_scales, r0 + 1, r0 + LR - 2, c0 + 1, c0 + LW - 2};
+    newton_walk<true>(dog, (long long)Hp * Wp, Wp, s_slot[i], y_slot[i], x_slot[i], true,
+                      box, pad, h, w, border, n_scales, max_steps, prm, vals);
   }
-  __syncthreads();
-  for (int k = threadIdx.x; k < bk; k += blockDim.x) {
-    const long long i = (long long)blk * bk + k;
-    float vals[16];
-    for (int j = 0; j < 16; ++j) vals[j] = 0.0f;
-    if (a_slot[i]) {
-      int s = s_slot[i], y = y_slot[i], x = x_slot[i];
-      bool conv = false, dead = false, esc = false;
-      float fields[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-      for (int it = 0; it < max_steps && !(conv || dead || esc); ++it) {
-        NewtonResult r = newton_at(win, per_plane, LW, clampi(s, 1, n_scales),
-                                   clampi(y - r0, 1, LR - 2), clampi(x - c0, 1, LW - 2),
-                                   prm);
-        if (r.ok) {
-          conv = true;
-          fields[0] = r.off_s;
-          fields[1] = r.off_y;
-          fields[2] = r.off_x;
-          fields[3] = r.response;
-          fields[4] = r.keep ? 1.0f : 0.0f;
-        } else {
-          s += r.step_s;
-          y += r.step_y;
-          x += r.step_x;
-          dead = s < 1 || s > n_scales || x - pad < border || x - pad >= w - border ||
-                 y - pad < border || y - pad >= h - border;
-          esc = !dead && (y - r0 < 1 || y - r0 > LR - 2 || x - c0 < 1 || x - c0 > LW - 2);
-        }
-      }
-      vals[0] = conv ? 1.0f : 0.0f;
-      vals[1] = (float)s;
-      vals[2] = (float)y;
-      vals[3] = (float)x;
-      for (int j = 0; j < 5; ++j) vals[4 + j] = fields[j];
-      vals[9] = esc ? 1.0f : 0.0f;
-    }
-    float* row = out + i * 16;
-    for (int j = 0; j < 16; ++j) row[j] = vals[j];
-  }
+  store_row(out + (long long)i * 16, vals);
 }
 
 // dog (n_planes, Hp, Wp); slot arrays (n_blocks * bk,) int32 and block
-// arrays (n_blocks,) int32 of utils/region_group.py:group_by_region; out
-// (n_blocks * bk, 16) must hold zeros (empty blocks write nothing).
+// arrays (n_blocks,) int32 of utils/region_group.py:group_by_region. Writes
+// all n_blocks * bk rows of out.
 SIFT_EXPORT int sift_refine_tile(const float* dog, int Hp, int Wp, const int* s_slot,
                                  const int* y_slot, const int* x_slot, const int* a_slot,
                                  const int* r0_b, const int* c0_b, const int* pb_b,
@@ -438,14 +399,11 @@ SIFT_EXPORT int sift_refine_tile(const float* dog, int Hp, int Wp, const int* s_
                                  int LR, int LW, int pad, int h, int w, int border,
                                  int n_scales, int max_steps, float contrast_threshold,
                                  float edge_threshold, cudaStream_t stream) {
-  if (n_blocks == 0) return 0;
-  size_t smem = (size_t)(n_scales + 2) * LR * LW * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      refine_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  const int T = n_blocks * bk;
+  if (T == 0) return 0;
   NewtonParams prm{contrast_threshold, edge_threshold, (float)n_scales};
-  refine_tile_kernel<<<n_blocks, TILE_THREADS, smem, stream>>>(
-      dog, Hp, Wp, s_slot, y_slot, x_slot, a_slot, r0_b, c0_b, pb_b, active_b, out, bk,
-      LR, LW, pad, h, w, border, n_scales, max_steps, prm);
+  refine_tile_kernel<<<(T + 127) / 128, 128, 0, stream>>>(
+      dog, Hp, Wp, s_slot, y_slot, x_slot, a_slot, r0_b, c0_b, pb_b, active_b, out, T,
+      bk, LR, LW, pad, h, w, border, n_scales, max_steps, prm);
   return (int)cudaGetLastError();
 }

@@ -5,15 +5,18 @@ refine_walk_tpu (`_kernel`): the whole <= max_interpolation_steps loop in
 one launch. K4 (`refine_step`) replaces ops/pallas/refine_kernel.py:
 refine_step_pallas (`_kernel`): one masked step, which `refine_stepwise`
 drives step by step (refine_mode="step"). K10 (`refine_step_region`)
-replaces ops/pallas/refine_region_kernel.py:_region_call: the same step
-with co-located candidates sharing one staged window; `refine_region` runs
-it for the first region_steps steps and K4 after (refine_mode="region").
+replaces ops/pallas/refine_region_kernel.py:_region_call: the same step,
+one thread per lane with the lanes in region order (`region_order`), so a
+region's cube loads share cache lines; `refine_region` runs it for the
+first region_steps steps and K4 after (refine_mode="region").
 K11 (`refine_tile_slots`) replaces ops/pallas/refine_tile_kernel.py:
-_refine_tile_call: the whole walk of tile-grouped candidates from a
-shared-memory window; `refine_tile` groups, launches it and re-refines the
-escaped walks with the K4 loop (refine_mode="tile"). All four CUDA entries
-live in csrc/refine.cu and share one __device__ Newton function; the notes
-there give each kernel's bound and design.
+_refine_tile_call: the whole walk of tile-grouped candidates, one thread
+per slot, each walk held inside its block's window (cubes read from the
+DoG in global memory, nothing staged); `refine_tile` groups, launches it
+and re-refines the escaped walks with the K4 loop (refine_mode="tile").
+All four CUDA entries live in csrc/refine.cu and share one __device__
+Newton function (K3 and K11 also one walk); the notes there give each
+kernel's bound and design.
 
 Rows are (K, 16) f32 in the layout of ops/extrema.py (ROW_COLS).
 
@@ -30,7 +33,6 @@ import ctypes
 import torch
 
 from ...config import SiftConfig
-from ...utils.compact import compact_indices
 from ...utils.region_group import RegionLayout, group_by_region, merge_escaped
 from ..extrema import ROW_COLS, newton_step, refine, refine_loop
 from . import build
@@ -38,8 +40,9 @@ from . import build
 # K10's region: the JAX region key's 8-row x 128-column bands
 # (refine_region_kernel.py:250-253)
 REGION_ROWS, REGION_COLS = 8, 128
-# K11's geometry (csrc/refine.cu gives the reason): 32 x 64 regions, an
-# 8-cell margin, blocks of 16 slots
+# K11's geometry: 32 x 64 regions, an 8-cell margin, blocks of 16 slots.
+# The window (48 x 80) decides which walks escape to the K4 loop; the kernel
+# reads no window into shared memory (csrc/refine.cu gives the reason)
 TILE_R, TILE_C, TILE_MARGIN, TILE_BK = 32, 64, 8, 16
 
 
@@ -126,10 +129,11 @@ def refine_walk(dog_flat: torch.Tensor, s0, y0, x0, valid, pad: int, h: int,
 
 
 def region_order(p, y, x, active, n_planes: int, hp: int, wp: int) -> dict:
-    """K10's grouping, on the lanes' device with no host sync: the clamped
-    positions (K4's clamps) sorted stably by the JAX region key (inactive
-    lanes last), the original index of each sorted lane, where each region's
-    run starts, and the run and active counts as 0-d tensors."""
+    """K10's lane order, on the lanes' device with no host sync: the clamped
+    positions (K4's clamps, int32) sorted stably by the JAX region key
+    (inactive lanes last), the original index of each sorted lane (int32),
+    the sorted keys (inactive lanes: n_regions) and the active count as a
+    0-d int32 tensor."""
     p = torch.clamp(p.long(), 1, n_planes - 2)
     y = torch.clamp(y.long(), 1, hp - 2)
     x = torch.clamp(x.long(), 1, wp - 2)
@@ -139,13 +143,9 @@ def region_order(p, y, x, active, n_planes: int, hp: int, wp: int) -> dict:
     key = (p * nry + (y - 1) // REGION_ROWS) * nrx + (x - 1) // REGION_COLS
     key = torch.where(active, key, torch.full_like(key, n_regions))
     key_s, perm = torch.sort(key, stable=True)
-    first = torch.ones_like(active)
-    first[1:] = key_s[1:] != key_s[:-1]
-    n_blocks = min(p.shape[0], n_regions)
-    run_start, _, n_runs = compact_indices(first & (key_s < n_regions), n_blocks)
-    return {"p": p[perm], "y": y[perm], "x": x[perm], "active": active[perm],
-            "perm": perm, "run_start": run_start, "n_runs": n_runs,
-            "n_active": active.sum(), "n_blocks": n_blocks}
+    return {"p": _i32(p[perm]), "y": _i32(y[perm]), "x": _i32(x[perm]),
+            "active": active[perm], "perm": _i32(perm), "key": key_s,
+            "n_active": active.sum(dtype=torch.int32)}
 
 
 def region_step_plain(dog_flat: torch.Tensor, g: dict,
@@ -155,32 +155,30 @@ def region_step_plain(dog_flat: torch.Tensor, g: dict,
     permutation."""
     out = torch.zeros((g["perm"].shape[0], ROW_COLS), dtype=torch.float32,
                       device=dog_flat.device)
-    out[g["perm"]] = newton_step(dog_flat, g["p"], g["y"], g["x"], g["active"],
-                                 cfg)
+    out[g["perm"].long()] = newton_step(dog_flat, g["p"], g["y"], g["x"],
+                                        g["active"], cfg)
     return out
 
 
 def region_step(dog_flat: torch.Tensor, g: dict, cfg: SiftConfig) -> torch.Tensor:
-    """K10 on lanes grouped by `region_order`: the plain version for a CPU
-    tensor; the CUDA kernel for a CUDA tensor (or an error)."""
+    """K10 on lanes in the order of `region_order`: the plain version for a
+    CPU tensor; the CUDA kernel for a CUDA tensor (or an error)."""
     _require_f32("refine_step_region", dog_flat)
     if dog_flat.device.type == "cpu":
         return region_step_plain(dog_flat, g, cfg)
     _, hp, wp = dog_flat.shape
-    out = torch.zeros((g["perm"].shape[0], ROW_COLS), dtype=torch.float32,
-                      device=dog_flat.device)
-    sp, yp, xp, perm, run_start, n_runs, n_act = (
-        _i32(g[k]) for k in ("p", "y", "x", "perm", "run_start", "n_runs",
-                             "n_active"))
-    n_runs, n_act = n_runs.reshape(1), n_act.reshape(1)
-    build.require_cuda("refine_step_region", dog_flat, sp, yp, xp, perm,
-                       run_start, n_runs, n_act)
+    sp, yp, xp, perm, n_act = (_i32(g[k]) for k in ("p", "y", "x", "perm",
+                                                     "n_active"))
+    n_act = n_act.reshape(1)
+    build.require_cuda("refine_step_region", dog_flat, sp, yp, xp, perm, n_act)
+    k = perm.shape[0]
+    # the kernel writes every row
+    out = torch.empty((k, ROW_COLS), dtype=torch.float32, device=dog_flat.device)
     fn = build.bind("refine", "sift_refine_region",
-                    [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                    [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
                     + [ctypes.c_int] + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     rc = fn(build.ptr(dog_flat), hp, wp, build.ptr(sp), build.ptr(yp),
-            build.ptr(xp), build.ptr(perm), build.ptr(run_start),
-            build.ptr(n_runs), build.ptr(n_act), build.ptr(out), g["n_blocks"],
+            build.ptr(xp), build.ptr(perm), build.ptr(n_act), build.ptr(out), k,
             float(cfg.contrast_threshold), float(cfg.edge_threshold),
             float(cfg.scales_per_octave), build.stream_ptr(dog_flat))
     build.check(rc, "K10 refine_step_region")
@@ -286,7 +284,8 @@ def refine_tile_slots(dog_flat: torch.Tensor, g: RegionLayout, pad: int,
     build.require_cuda("refine_tile_slots", dog_flat, *slots)
     _, hp, wp = dog_flat.shape
     lr, lw = _window(dog_flat)
-    out = torch.zeros((g.T_cap, ROW_COLS), dtype=torch.float32,
+    # the kernel writes every slot row, zero on empty slots
+    out = torch.empty((g.T_cap, ROW_COLS), dtype=torch.float32,
                       device=dog_flat.device)
     fn = build.bind("refine", "sift_refine_tile",
                     [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9

@@ -522,6 +522,132 @@ def test_k11_matches_plain_and_k3(dev):
                        refine_walk(*args, plane_off=poff))
 
 
+def _ramp_case():
+    """test_pallas_kernels.py:test_refine_tile_escape_fallback's input: a
+    smooth ramp gives near-singular Hessians and long Newton steps."""
+    rng = np.random.RandomState(9)
+    h, w = 160, 200
+    yg, xg = np.mgrid[0:h, 0:w].astype(np.float32)
+    dog = np.stack([0.001 * xg + 0.0005 * yg + 0.03 * np.sin(i + xg / 40.0)
+                    for i in range(5)]).astype(np.float32)
+    dog += (rng.randn(5, h, w) * 1e-5).astype(np.float32)
+    K = 128
+    s = rng.randint(1, 4, K).astype(np.int32)
+    y = rng.randint(20, h - 20, K).astype(np.int32)
+    x = rng.randint(20, w - 20, K).astype(np.int32)
+    return dog, s, y, x, np.ones(K, bool)
+
+
+def _check_k11(dev, args, poff=None):
+    """K11's slot rows on args = (flat, s0, y0, x0, valid, pad, h, w, cfg):
+    two launches identical, equal to the plain version bit for bit (escape
+    flags included), zero on empty slots, and the merged rows equal K3's.
+    Returns (layout, slot rows)."""
+    from sift_features_tpu_torch.ops.kernels.refine import (
+        refine_tile, refine_tile_plain, refine_tile_slots, refine_walk,
+        tile_layout)
+
+    flat, _, _, _, _, pad, h, w, cfg = args
+    g = tile_layout(*args[:5], pad, cfg, poff)
+    slots = refine_tile_slots(flat, g, pad, h, w, cfg)
+    slots2 = refine_tile_slots(flat, g, pad, h, w, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(slots, slots2)
+    assert torch.equal(slots, refine_tile_plain(flat, g, pad, h, w, cfg))
+    assert not slots[g.a_slot == 0].any()
+    assert torch.equal(refine_tile(*args, plane_off=poff),
+                       refine_walk(*args, plane_off=poff))
+    return g, slots
+
+
+def test_k11_ramp_escapes_bit_exact(dev):
+    """The ramp makes walks leave their window: escape flags and rows as
+    the plain version's, and the K4 loop's re-refinement merged as K3's."""
+    dog, s, y, x, valid = _ramp_case()
+    _, h, w = dog.shape
+    hp = -(-(h + 2 * P) // 8) * 8
+    wp = -(-(w + 2 * P) // 128) * 128
+    dog_p = np.zeros((5, hp, wp), np.float32)
+    dog_p[:, P:P + h, P:P + w] = dog
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    _, slots = _check_k11(dev, (t(dog_p), t(s), t(y + P), t(x + P), t(valid),
+                                P, h, w, CFG))
+    assert int((slots[:, 9] > 0).sum()) > 0
+
+
+def test_k11_crowded_region_bit_exact(dev):
+    """A region holding more candidates than a block of TILE_BK slots, so
+    several blocks share one window origin, beside the seed octave's real
+    candidates of two frames."""
+    from sift_features_tpu_torch.ops.kernels.refine import TILE_BK
+
+    flat, s0, y0, x0, valid, poff, (h, w) = _candidates(dev)
+    rng = np.random.RandomState(4)
+    n = 3 * TILE_BK + 5
+    # one 32 x 64 region of frame 1 (rows 64-95, columns 128-191), inside
+    # the image
+    ys = torch.from_numpy(rng.randint(64, 96, n)).to(dev, y0.dtype)
+    xs = torch.from_numpy(rng.randint(128, 192, n)).to(dev, x0.dtype)
+    ss = torch.from_numpy(rng.randint(1, 4, n)).to(dev, s0.dtype)
+    cat = lambda a, b: torch.cat([a, b])  # noqa: E731
+    args = (flat, cat(s0, ss), cat(y0, ys), cat(x0, xs),
+            cat(valid, torch.ones(n, device=dev, dtype=valid.dtype)), P, h, w,
+            CFG)
+    poff = cat(poff, torch.full((n,), CFG.scales_per_octave + 2, device=dev,
+                                dtype=poff.dtype))
+    g, slots = _check_k11(dev, args, poff)
+    live = g.active_b > 0
+    origin = torch.stack([g.pb_b, g.r0_b, g.c0_b], 1)[live]
+    assert origin.unique(dim=0).shape[0] < origin.shape[0]
+    assert int((slots[:, 0] > 0).sum()) > n // 4
+
+
+def test_k10_edges_bit_exact(dev):
+    """No active lane; K not a multiple of 128 with positions past the
+    clamps; lanes on a flat patch of the DoG (singular Hessians: NaN
+    offsets, zeroed in the rows) and on a patch of 1e-15 noise (near-
+    singular: infinite offsets and NaN responses in the rows): rows equal
+    K4's and the plain step's bit for bit."""
+    from sift_features_tpu_torch.ops.extrema import newton_step
+    from sift_features_tpu_torch.ops.kernels.refine import (
+        refine_step, refine_step_region)
+
+    flat, s0, y0, x0, valid, poff, _ = _candidates(dev, k=150)
+    rng = np.random.RandomState(6)
+    flat = flat.clone()
+    flat[:, 60:80, 60:100] = 0.25
+    flat[:, 100:120, 60:100] = torch.from_numpy(
+        rng.randn(flat.shape[0], 20, 40).astype(np.float32) * 1e-15).to(dev)
+    n = 48
+    p = torch.clamp(s0, 1, CFG.scales_per_octave) + poff
+    pp = torch.from_numpy(rng.randint(1, 4, n)).to(dev, p.dtype)
+    yy = torch.from_numpy(np.r_[rng.randint(62, 78, n // 2),
+                                rng.randint(102, 118, n // 2)]).to(dev, y0.dtype)
+    xx = torch.from_numpy(rng.randint(62, 98, n)).to(dev, x0.dtype)
+    # past the clamps: planes 0 and n_planes - 1, rows and columns outside
+    n_p, hp, wp = flat.shape
+    ep = torch.tensor([0, n_p - 1, 2, 2], device=dev, dtype=p.dtype)
+    ey = torch.tensor([70, 70, 0, hp + 5], device=dev, dtype=y0.dtype)
+    ex = torch.tensor([70, 70, wp - 1, -3], device=dev, dtype=x0.dtype)
+    p, y, x = torch.cat([p, pp, ep]), torch.cat([y0, yy, ey]), torch.cat([x0, xx, ex])
+    act = torch.cat([valid, torch.ones(n + 4, device=dev, dtype=valid.dtype)])
+    assert p.numel() % 128 != 0
+    bits = lambda t: t.view(torch.int32)  # noqa: E731 (NaN-safe equality)
+    for a in (torch.zeros_like(act), act):
+        k10 = refine_step_region(flat, p, y, x, a, CFG)
+        k10b = refine_step_region(flat, p, y, x, a, CFG)
+        k4 = refine_step(flat, p, y, x, a, CFG)
+        plain = newton_step(flat, p, y, x, a, CFG)
+        torch.cuda.synchronize()
+        assert torch.equal(bits(k10), bits(k10b))
+        assert torch.equal(bits(k10), bits(k4))
+        assert torch.equal(bits(k10), bits(plain))
+    # the flat patch: no convergence, no step, zeroed offsets
+    on_flat = k10[-(n + 4):-(n // 2 + 4)]
+    assert not on_flat[:, 0:7].any()
+    assert not torch.isfinite(k10[:, 4:8]).all()
+
+
 def test_k8_matches_plain_and_k5(dev):
     from sift_features_tpu_torch.ops.kernels.orientation import (
         bucket_radii_ori, orientation_hist_peaks, orientation_hist_perkey)

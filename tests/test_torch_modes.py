@@ -35,7 +35,7 @@ from sift_features_tpu_torch.ops.kernels import orientation as tk5
 from sift_features_tpu_torch.ops.kernels import refine as tkr
 from sift_features_tpu_torch.utils.region_group import group_by_region
 
-from test_torch_gpu import one_torch_thread, smooth_images  # noqa: F401
+from test_torch_gpu import _ramp_case, one_torch_thread, smooth_images  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -91,9 +91,13 @@ def test_k10_plain_matches_pallas_region():
     # and K4's rows bit for bit, non-finite values included
     k4 = newton_step(*args, CFG).numpy()
     np.testing.assert_array_equal(got.view(np.int32), k4.view(np.int32))
-    # several candidates share a region
+    # several candidates share a region: fewer region runs in the sorted
+    # keys of the active lanes than active lanes, and more than one
     g = tkr.region_order(*args[1:], S, Hp, Wp)
-    assert 1 < int(g["n_runs"]) < count
+    keys = g["key"][:int(g["n_active"])]
+    n_runs = 1 + int((keys[1:] != keys[:-1]).sum())
+    assert int(g["n_active"]) == count
+    assert 1 < n_runs < count
 
 
 def _strided_case():
@@ -112,22 +116,6 @@ def _strided_case():
     x = np.full(K, 0, np.int32)
     s[:k], y[:k], x[:k] = s0[pick] + 1, y0[pick], x0[pick]
     return dog, s, y, x, np.arange(K) < k
-
-
-def _ramp_case():
-    """test_pallas_kernels.py:test_refine_tile_escape_fallback's input: a
-    smooth ramp gives near-singular Hessians and long Newton steps."""
-    rng = np.random.RandomState(9)
-    h, w = 160, 200
-    yg, xg = np.mgrid[0:h, 0:w].astype(np.float32)
-    dog = np.stack([0.001 * xg + 0.0005 * yg + 0.03 * np.sin(i + xg / 40.0)
-                    for i in range(5)]).astype(np.float32)
-    dog += (rng.randn(5, h, w) * 1e-5).astype(np.float32)
-    K = 128
-    s = rng.randint(1, 4, K).astype(np.int32)
-    y = rng.randint(20, h - 20, K).astype(np.int32)
-    x = rng.randint(20, w - 20, K).astype(np.int32)
-    return dog, s, y, x, np.ones(K, bool)
 
 
 @pytest.mark.parametrize("case", [_strided_case, _ramp_case])
@@ -216,6 +204,50 @@ def test_grouping_matches_jax_group_by_region():
     # the dense cluster fills more than one block of its region
     active_b = g.active_b.numpy()
     assert (active_b == tkr.TILE_BK).any() and (active_b == 0).any()
+
+
+@pytest.mark.parametrize("geom", ["1080p_octave0", "window_covers_plane"])
+def test_tile_windows_inside_stack(geom):
+    """K11 reads a live slot's cubes from the DoG in global memory: planes
+    pb_b + clamp(s, 1, S) +- 1, rows r0_b + [0, LR) and columns c0_b +
+    [0, LW) of its block (the walk clamps each cube centre into the
+    window's interior). So every block's window must lie inside the stack,
+    and a live slot's block must read the candidate's own frame. At the
+    1080p B=4 octave 0 (K = 131,072 candidates) and at a plane no taller
+    than the window (LR = Hp)."""
+    S, b = CFG.scales_per_octave, CFG.image_border
+    n_dog = S + 2
+    if geom == "1080p_octave0":
+        B, pad, h, w, K = 4, P, 2160, 3840, 131072
+        Hp, Wp = tx.padded_dims(h, w)
+        assert (Hp, Wp) == (2304, 4096)
+    else:
+        B, pad, h, w, K = 2, 8, 24, 368, 600
+        Hp, Wp = h + 2 * pad, w + 2 * pad
+    rng = np.random.RandomState(17)
+    s = rng.randint(1, S + 1, K).astype(np.int32)
+    y = rng.randint(pad + b, pad + h - b, K).astype(np.int32)
+    x = rng.randint(pad + b, pad + w - b, K).astype(np.int32)
+    # candidates on the corners of the image's interior
+    y[:4] = [pad + b, pad + b, pad + h - b - 1, pad + h - b - 1]
+    x[:4] = [pad + b, pad + w - b - 1, pad + b, pad + w - b - 1]
+    valid = rng.rand(K) < 0.25
+    valid[:4] = True
+    poff = (np.arange(K) // (K // B) * n_dog).astype(np.int32)
+    n_planes = B * n_dog
+    dog = torch.zeros(()).expand(n_planes, Hp, Wp)   # the shape alone
+    g = tkr.tile_layout(dog, _t(s), _t(y), _t(x), _t(valid), pad, CFG, _t(poff))
+    lr, lw = tkr._window(dog)
+    assert (lr == Hp) == (geom == "window_covers_plane")
+    pb, r0, c0 = g.pb_b.numpy(), g.r0_b.numpy(), g.c0_b.numpy()
+    assert ((pb >= 0) & (pb + S + 1 <= n_planes - 1)).all()
+    assert ((r0 >= 0) & (r0 <= Hp - lr)).all()
+    assert ((c0 >= 0) & (c0 <= Wp - lw)).all()
+    live = g.a_slot.numpy() > 0
+    assert live.sum() == valid.sum()
+    blk = np.nonzero(live)[0] // tkr.TILE_BK
+    np.testing.assert_array_equal(pb[blk], poff[g.src.numpy()[live]])
+    assert (g.active_b.numpy()[blk] > 0).all()
 
 
 def _perkey_lanes(seed, n, h, w, si):
