@@ -214,6 +214,13 @@ def window_samples(torch, scale, live, factor, r_max):
             float(((2 * r + 1) ** 2).sum()))
 
 
+def step_bytes(k: int, n_act: int, cube: int) -> int:
+    """Bytes that one masked Newton step (K4, K10) needs: every lane's mask
+    or index (4 B) and row (64 B), and each active lane's position (12 B)
+    and cube (27 values, `cube` bytes in all)."""
+    return k * (4 + 16 * 4) + n_act * (3 * 4 + cube)
+
+
 def bound(nbytes: float, ops: float):
     t_b = nbytes / H100_BYTES_PER_S * 1e3
     t_o = ops / H100_F32_INSTR_PER_S * 1e3
@@ -324,13 +331,11 @@ def device_ms(torch, fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def refine_device_ms(torch, cap, cfg) -> dict:
-    """Device time (device_ms) per launch of K3, K4, K10 and K11 at K3's
-    octave-0 candidates, their inputs cast to int32 first so the wrappers
-    launch their kernel alone; a wrapper that cannot be captured in a CUDA
-    graph gets the reason instead of a number. Uses only wrapper names the
-    port has had since the kernels were ported, so kernel_ab.py can time
-    an older checkout with it."""
+def refine_calls(torch, cap, cfg) -> dict:
+    """One call of each refine wrapper, K3, K4, K10 and K11, at K3's octave-0
+    candidates, their inputs cast to int32 first. Uses only wrapper names
+    the port has had since the kernels were ported, so kernel_ab.py can
+    time an older checkout with it."""
     from sift_features_tpu_torch.ops.kernels import refine as kr
 
     args, kw = cap["K3"]
@@ -340,18 +345,62 @@ def refine_device_ms(torch, cap, cfg) -> dict:
     p = torch.clamp(s0, 1, cfg.scales_per_octave) + poff
     g = kr.region_order(p, y0, x0, valid, *dog_flat.shape)
     lay = kr.tile_layout(dog_flat, s0, y0, x0, valid, pad, cfg, poff)
-    fns = {"K3": lambda: kr.refine_walk(dog_flat, s0, y0, x0, valid, pad, h, w,
-                                        cfg, plane_off=poff),
-           "K4": lambda: kr.refine_step(dog_flat, p, y0, x0, valid, cfg),
-           "K10": lambda: kr.region_step(dog_flat, g, cfg),
-           "K11": lambda: kr.refine_tile_slots(dog_flat, lay, pad, h, w, cfg)}
+    return {"K3": lambda: kr.refine_walk(dog_flat, s0, y0, x0, valid, pad, h, w,
+                                         cfg, plane_off=poff),
+            "K4": lambda: kr.refine_step(dog_flat, p, y0, x0, valid, cfg),
+            "K10": lambda: kr.region_step(dog_flat, g, cfg),
+            "K11": lambda: kr.refine_tile_slots(dog_flat, lay, pad, h, w, cfg)}
+
+
+def refine_device_ms(torch, cap, cfg) -> dict:
+    """Device time (device_ms) per call of the refine wrappers of
+    `refine_calls`; a wrapper that cannot be captured in a CUDA graph gets
+    the reason instead of a number. This tree's wrappers launch their kernel
+    alone on those inputs; an older checkout's may also cast or zero-fill on
+    the card, and then its time includes those kernels (`refine_kernel_ms`
+    separates them)."""
     out = {}
-    for k, fn in fns.items():
+    for k, fn in refine_calls(torch, cap, cfg).items():
         try:
             out[k] = device_ms(torch, fn)
         except RuntimeError as e:
             out[k] = f"not capturable in a CUDA graph ({str(e).splitlines()[0]})"
     return out
+
+
+REFINE_KERNELS = {"K3": "refine_walk_kernel", "K4": "refine_step_kernel",
+                  "K10": "refine_region_kernel", "K11": "refine_tile_kernel"}
+
+
+def refine_kernel_ms(torch, cap, cfg, reps: int = 10) -> dict:
+    """Device time per launch of each refine kernel alone, at the calls of
+    `refine_calls`: reps calls of every wrapper in one torch.profiler
+    (CUPTI) session, each kernel's time summed by its name, so the other
+    kernels a wrapper launches (an older checkout's casts and fills) are
+    left out; None where the session recorded no launch of it. Opens a
+    profiler, which slows every later launch in the process: call it after
+    all timing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = refine_calls(torch, cap, cfg)
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in calls.values():
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+    us, n = dict.fromkeys(calls, 0.0), dict.fromkeys(calls, 0)
+    names = {v: k for k, v in REFINE_KERNELS.items()}
+    for e in prof.key_averages():
+        k = names.get(e.key.removeprefix("void ").split("<")[0].split("(")[0])
+        if e.device_type == DeviceType.CUDA and k is not None:
+            us[k] += getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0))
+            n[k] += e.count
+    return {k: us[k] / 1e3 / n[k] if n[k] else None for k in calls}
 
 
 def k5_probe_lines(torch, k5, args, kw, ms):
@@ -433,7 +482,9 @@ def check_kernels(torch, cap, cfg, dev):
     plain = refine(*args, **kw)
     active = refine_steps_active(torch, full, cfg)
     k = s0.numel()
-    k3_bytes = k * (5 * 4 + 16 * 4) + 27 * 4 * sum(active)
+    # every lane's s0, y0, x0, valid and row, each live lane's plane offset,
+    # each step's cubes
+    k3_bytes = k * (4 * 4 + 16 * 4) + 4 * active[0] + 27 * 4 * sum(active)
     ms = time_ms(torch, lambda: k34.refine_walk(*args, **kw), 10)
     plain_ms = time_ms(torch, lambda: refine(*args, **kw), 2)
     record("K3", [outs[0]], [outs[1]], [plain], True, 0.0, ms, plain_ms,
@@ -446,7 +497,7 @@ def check_kernels(torch, cap, cfg, dev):
     ms = time_ms(torch, lambda: k34.refine_step(*k4_args), 10)
     plain_ms = time_ms(torch, lambda: newton_step(*k4_args), 2)
     record("K4", [outs[0]], [outs[1]], [plain], True, 0.0, ms, plain_ms,
-           k * (4 * 4 + 16 * 4) + 27 * 4 * active[0], 150 * active[0],
+           step_bytes(k, active[0], 27 * 4), 150 * active[0],
            note=" (first step of the same candidates)", dev_ms=refine_dev["K4"])
     del outs, plain
 
@@ -588,7 +639,7 @@ def check_mode_kernels(torch, cap, cfg, record, rows, refine_dev):
     n_runs = int((keys[1:] != keys[:-1]).sum()) + 1 if n_act else 0
     record("K10", [nan_safe(torch, outs[0])], [nan_safe(torch, outs[1])],
            [nan_safe(torch, plain)], True, 0.0, ms, plain_ms,
-           k * (4 * 4 + 16 * 4) + 27 * 4 * active[0], 150 * active[0],
+           step_bytes(k, active[0], 27 * 4), 150 * active[0],
            note=f"; equal to K4 bit for bit; {n_runs} region runs for {n_act} "
                 f"active lanes; with the region sort {wrapper_ms:.4f} ms",
            dev_ms=refine_dev["K10"])
@@ -597,34 +648,30 @@ def check_mode_kernels(torch, cap, cfg, record, rows, refine_dev):
 
     # K11: the tile walk on the grouped slots (rows and escape flags against
     # the plain version), and the merged rows against K3's. The plain
-    # version's Newton steps count the active walks per step, for the bound
+    # version counts the walks going at each step, for the bound
     lay = kr.tile_layout(dog_flat, s0, y0, x0, valid, pad, cfg, poff)
     outs = [kr.refine_tile_slots(dog_flat, lay, pad, h, w, cfg) for _ in range(2)]
-    walks, newton = [], kr.newton_step
-
-    def counted(d, p_, y_, x_, act, c):
-        walks.append(int(act.sum()))
-        return newton(d, p_, y_, x_, act, c)
-    kr.newton_step = counted
-    try:
-        plain = kr.refine_tile_plain(dog_flat, lay, pad, h, w, cfg)
-    finally:
-        kr.newton_step = newton
+    walks = []
+    plain = kr.refine_tile_plain(dog_flat, lay, pad, h, w, cfg, counts=walks)
     merged = kr.refine_tile(*args, **kw)
     k3 = kr.refine_walk(*args, **kw)
     if not torch.equal(merged, k3):
         raise SystemExit("chip_smoke: K11's merged rows differ from K3's")
     n_esc = int((outs[0][:, 9] > 0).sum())
     n_blocks = int((lay.active_b > 0).sum())
+    n_live = int(lay.a_slot.bool().sum())
     ms = time_ms(torch, lambda: kr.refine_tile_slots(dog_flat, lay, pad, h, w,
                                                      cfg), 10)
     plain_ms = time_ms(torch, lambda: kr.refine_tile_plain(dog_flat, lay, pad,
                                                            h, w, cfg), 2)
-    # every slot's inputs (s, y, x, a) and row, every block's (r0, c0, pb,
-    # active), each walk's cube per step
+    # every slot's row and every block's active count; the slot flags and
+    # window origin (r0, c0, pb) of each active block; each live slot's
+    # (s, y, x); each walk's cube per step
+    k11_bytes = (lay.T_cap * 16 * 4 + lay.nb * 4
+                 + n_blocks * (kr.TILE_BK * 4 + 3 * 4) + n_live * 3 * 4
+                 + 27 * 4 * sum(walks))
     record("K11", [outs[0]], [outs[1]], [plain], True, 0.0, ms, plain_ms,
-           lay.T_cap * (4 * 4 + 16 * 4) + lay.nb * 4 * 4 + 27 * 4 * sum(walks),
-           150 * sum(walks),
+           k11_bytes, 150 * sum(walks),
            note=f"; merged rows equal K3's; {n_esc} escaped walks of "
                 f"{int(valid.sum())} candidates; {n_blocks} of {lay.nb} "
                 f"blocks active, {lay.T_cap} slots; active walks per step "
@@ -1180,7 +1227,7 @@ def check_storage_kernels(torch, extractor, frames, cfgs, cfg, dev, rows):
     plain_ms = time_ms(torch, lambda: newton_step(*args), 2)
     record("K4:bf16", [nan_safe(torch, outs[0])], [nan_safe(torch, outs[1])],
            [nan_safe(torch, plain)], True, 0.0, ms, plain_ms,
-           p.numel() * (4 * 4 + 16 * 4) + 27 * 2 * n_act, 150 * n_act,
+           step_bytes(p.numel(), n_act, 27 * 2), 150 * n_act,
            note=f" (first Newton step at octave 0: {n_act} active of "
                 f"{p.numel()} lanes)")
     del outs, plain

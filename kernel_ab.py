@@ -15,8 +15,12 @@ device time inside one main step (CUDA events around each wrapper call),
 the matcher's `match_ms` on that step's descriptors (phase 4's measure:
 CUDA events around the B cross-check matches, here over 20 repetitions),
 the median of 10 main steps (host clock around each, ending in a
-synchronize) and the peak memory of each stage of `extract_batch` in the
-default and the storage modes. Prints each run's lines and, at the end,
+synchronize), the peak memory of each stage of `extract_batch` in the
+default and the storage modes and, last (a profiler session slows every
+later launch in its process), the device time of each refine kernel
+alone by torch.profiler (`refine_kernel_ms`: an older checkout's wrappers
+also cast and zero-fill on the card, which its `refine_device_ms`
+includes). Prints each run's lines and, at the end,
 one table of per-launch times by kernel and run and the step medians by
 run; with --out, writes every number to that JSON file. Comparing
 checkouts within one run, parent / change / change / parent, keeps the
@@ -112,9 +116,12 @@ def one(tree: str) -> dict:
     stage_peaks = {"f32": cs.stage_peaks(torch, extractor, step)}
     for mode, c in cfgs.items():
         stage_peaks[mode] = cs.stage_peaks(torch, extractor, lambda c=c: step(c))
+    cap = cs.capture_octave0(torch, extractor, frames, dev)
+    refine_kernel = cs_here.refine_kernel_ms(torch, cap, cfg)
     return {"tree": tree, "card": cs.nvidia_smi_line(),
             "device": torch.cuda.get_device_name(0), "build_s": build_s,
             "ptxas": ptxas, "rows": rows, "refine_device_ms": refine_dev,
+            "refine_kernel_ms": refine_kernel,
             "kernel_ms_in_step": in_step,
             "launches_in_step": {k: len(v) for k, v in events.items()},
             "match_ms": match_ms, "step_ms": step_ms,
@@ -160,6 +167,10 @@ def main(argv) -> int:
         ms = " / ".join(f"{v:.4f}" if isinstance(v, float) else str(v) for v in
                         (r["refine_device_ms"][k] for r in runs))
         print(f"[kernel_ab] {k:9s} device ms per launch {ms}")
+    for k in runs[-1]["refine_kernel_ms"]:
+        ms = " / ".join("not recorded" if v is None else f"{v:.4f}" for v in
+                        (r["refine_kernel_ms"][k] for r in runs))
+        print(f"[kernel_ab] {k:9s} kernel alone (profiled) ms per launch {ms}")
     for k in runs[-1]["kernel_ms_in_step"]:
         ms = " / ".join(f"{r['kernel_ms_in_step'].get(k, 0):.3f}" for r in runs)
         print(f"[kernel_ab] in one main step: {k} {ms} ms")

@@ -174,11 +174,12 @@ struct WalkBox {
 // ops/extrema.py:refine (lib.rs:525-603): it converges when all three
 // offsets are < 0.5, otherwise moves by the rounded offsets and dies when
 // it leaves [border, size - border) or the scale range [1, n_scales]. A
-// walk that is not `live` does not move. ESCAPE (K11): the walk also stops,
-// and sets column 9, when it moves outside [ylo, yhi] x [xlo, xhi].
+// walk that is not `live` does not move. A walk that has not died also
+// stops, and sets column 9 (escaped), when it moves outside [ylo, yhi] x
+// [xlo, xhi]: K11's window interior. K3's box is the stack's interior, which
+// holds every position inside the image border, so a K3 walk never escapes.
 // vals: ok | s | y | x | off_s | off_y | off_x | response | keep | escaped |
 // 0...; columns 4-8 are zero where the walk did not converge.
-template <bool ESCAPE>
 __device__ __forceinline__ void newton_walk(const float* __restrict__ dog,
                                             long long plane, int Wp, int s, int y,
                                             int x, bool live, WalkBox box, int pad,
@@ -204,8 +205,7 @@ __device__ __forceinline__ void newton_walk(const float* __restrict__ dog,
       x += r.step_x;
       dead = s < 1 || s > n_scales || x - pad < border || x - pad >= w - border ||
              y - pad < border || y - pad >= h - border;
-      if (ESCAPE)
-        esc = !dead && (y < box.ylo || y > box.yhi || x < box.xlo || x > box.xhi);
+      esc = !dead && (y < box.ylo || y > box.yhi || x < box.xlo || x > box.xhi);
     }
   }
   vals[0] = conv ? 1.0f : 0.0f;
@@ -234,8 +234,8 @@ __global__ void refine_walk_kernel(const float* __restrict__ dog, int n_planes,
   if (k >= K) return;
   const WalkBox box{plane_off[k], 1, n_planes - 2, 1, Hp - 2, 1, Wp - 2};
   float vals[16];
-  newton_walk<false>(dog, (long long)Hp * Wp, Wp, s0[k], y0[k], x0[k], valid[k] != 0,
-                     box, pad, h, w, border, n_scales, max_steps, prm, vals);
+  newton_walk(dog, (long long)Hp * Wp, Wp, s0[k], y0[k], x0[k], valid[k] != 0, box,
+              pad, h, w, border, n_scales, max_steps, prm, vals);
   store_row(out + (long long)k * 16, vals);
 }
 
@@ -300,8 +300,8 @@ SIFT_EXPORT int sift_refine_walk(const float* dog, int n_planes, int Hp, int Wp,
 // Hp-16, which an active lane never reaches (it lies inside the image
 // border, at least PAD_DESC = 56 rows above the bottom of the stack).
 //
-// Bound on the H100: the bytes, as K4's: each lane's clamped position,
-// index and row (K x (4 x 4 + 16 x 4) B) and each active lane's cube.
+// Bound on the H100: the bytes, as K4's: each lane's index and row
+// (K x 68 B), and each active lane's clamped position and cube (120 B).
 __global__ void __launch_bounds__(128) refine_region_kernel(
     const float* __restrict__ dog, int Hp, int Wp, const int* __restrict__ sp,
     const int* __restrict__ yp, const int* __restrict__ xp,
@@ -364,9 +364,11 @@ SIFT_EXPORT int sift_refine_region(const float* dog, int Hp, int Wp, const int* 
 // its 4-bit step field; this kernel stores no packed field, so it has no
 // such rule.
 //
-// Bound on the H100: the bytes. Every slot's inputs and row, T_cap x (4 x 4
-// + 16 x 4) B, the block arrays, nb x 4 x 4 B, and the walks' cubes, 108 B a
-// step; the rows of the empty slots (~94% of T_cap at 1080p) are most of it.
+// Bound on the H100: the bytes. Every slot's row, T_cap x 64 B, and every
+// block's active count, nb x 4 B; each active block's slot flags and window
+// origin, bk x 4 + 12 B; each live slot's (s, y, x), 12 B; and the walks'
+// cubes, 108 B a step. The rows of the empty slots (~94% of T_cap at 1080p)
+// are most of it.
 __global__ void __launch_bounds__(128) refine_tile_kernel(
     const float* __restrict__ dog, int Hp, int Wp, const int* __restrict__ s_slot,
     const int* __restrict__ y_slot, const int* __restrict__ x_slot,
@@ -383,8 +385,8 @@ __global__ void __launch_bounds__(128) refine_tile_kernel(
   if (active_b[blk] != 0 && a_slot[i] != 0) {
     const int r0 = r0_b[blk], c0 = c0_b[blk], pb = pb_b[blk];
     const WalkBox box{pb, pb + 1, pb + n_scales, r0 + 1, r0 + LR - 2, c0 + 1, c0 + LW - 2};
-    newton_walk<true>(dog, (long long)Hp * Wp, Wp, s_slot[i], y_slot[i], x_slot[i], true,
-                      box, pad, h, w, border, n_scales, max_steps, prm, vals);
+    newton_walk(dog, (long long)Hp * Wp, Wp, s_slot[i], y_slot[i], x_slot[i], true, box,
+                pad, h, w, border, n_scales, max_steps, prm, vals);
   }
   store_row(out + (long long)i * 16, vals);
 }

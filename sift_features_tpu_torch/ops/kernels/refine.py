@@ -226,11 +226,14 @@ def _window(dog_flat: torch.Tensor) -> tuple[int, int]:
 
 
 def refine_tile_plain(dog_flat: torch.Tensor, g: RegionLayout, pad: int,
-                      h: int, w: int, cfg: SiftConfig) -> torch.Tensor:
+                      h: int, w: int, cfg: SiftConfig,
+                      counts: list | None = None) -> torch.Tensor:
     """Plain version of K11: every slot's walk with K3's bookkeeping, its
     cubes read at positions clamped into its block's window interior, and
     the walk stopped and flagged (column 9) when it moves outside that
-    interior. -> (T_cap, 16) rows, zero on empty slots."""
+    interior. -> (T_cap, 16) rows, zero on empty slots. With `counts`, the
+    number of walks still going at each step is appended to it (one host
+    sync a step)."""
     S, b = cfg.scales_per_octave, cfg.image_border
     lr, lw = _window(dog_flat)
     blk = torch.arange(g.T_cap, device=dog_flat.device) // TILE_BK
@@ -244,6 +247,8 @@ def refine_tile_plain(dog_flat: torch.Tensor, g: RegionLayout, pad: int,
                          device=dog_flat.device)
     for _ in range(cfg.max_interpolation_steps):
         active = ~(conv | dead | esc)
+        if counts is not None:
+            counts.append(int(active.sum()))
         out = newton_step(dog_flat, torch.clamp(s, 1, S) + pb,
                           torch.clamp(y - r0, 1, lr - 2) + r0,
                           torch.clamp(x - c0, 1, lw - 2) + c0, active, cfg)

@@ -29,7 +29,7 @@ from sift_features_tpu.ops import descriptor as jdesc
 from sift_features_tpu.ops import extrema as jext
 from sift_features_tpu_torch.config import DEFAULT_CONFIG as CFG
 from sift_features_tpu_torch.models import extractor as tx
-from sift_features_tpu_torch.ops.extrema import newton_step, refine
+from sift_features_tpu_torch.ops.extrema import newton_step, refine, refine_loop
 from sift_features_tpu_torch.ops.kernels import descriptor as tk6
 from sift_features_tpu_torch.ops.kernels import orientation as tk5
 from sift_features_tpu_torch.ops.kernels import refine as tkr
@@ -154,6 +154,31 @@ def test_tile_refine_matches_xla_refine(case):
         assert n_esc > 0, "the ramp must make some walks escape the window"
     else:
         assert conv.sum() > 20
+
+
+def test_tile_plain_counts_walks_per_step():
+    """refine_tile_plain's per-step counts (chip_smoke.py's K11 bound reads
+    them): on strided candidates no walk escapes its window, so the tile
+    walks going at each step are the plain refine loop's active lanes."""
+    dog, s, y, x, valid = _strided_case()
+    _, h, w = dog.shape
+    Hp = -(-(h + 2 * P) // 8) * 8
+    Wp = -(-(w + 2 * P) // 128) * 128
+    dog_p = np.zeros((5, Hp, Wp), np.float32)
+    dog_p[:, P:P + h, P:P + w] = dog
+    args = (_t(dog_p), _t(s), _t(y + P), _t(x + P), _t(valid), P, h, w)
+    g = tkr.tile_layout(*args[:6], CFG)
+    walks, active = [], []
+    slots = tkr.refine_tile_plain(args[0], g, P, h, w, CFG, counts=walks)
+    assert int((slots[:, 9] > 0).sum()) == 0
+
+    def step(p, y_, x_, act):
+        active.append(int(act.sum()))
+        return newton_step(args[0], p, y_, x_, act, CFG)
+    refine_loop(step, *args[1:], CFG)
+    assert walks == active
+    assert len(walks) == CFG.max_interpolation_steps
+    assert walks[0] == int(valid.sum()) and walks[1] > 0
 
 
 def test_grouping_matches_jax_group_by_region():
