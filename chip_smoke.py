@@ -21,8 +21,10 @@ Phases (any failure stops the script with a non-zero exit):
      that path builds with it; K10 and K11 at K3's
      candidates (K10 also against K4's rows, K11's merged rows against
      K3's), K8 and K7 on K5's and K6's lanes, one launch per scale bucket
-     (also against K5's and K6's raw rows). The refine kernels K3, K4, K10
-     and K11 also print their device time (device_ms: the wrapper's calls
+     (K8 bit-exact, also against K5's and K6's raw rows). The refine
+     kernels K3, K4, K4:bf16 (on a bf16 copy of the DoG), K10 and K11 and
+     the window kernels K5 and K8 (its three bucket launches on K5's
+     lanes) also print their device time (device_ms: the wrapper's calls
      captured in a CUDA graph, one replay timed), which below ~0.1 ms the
      events around the wrapper cannot give;
   4. main path: extract_batch on the B=4 1080p batch, then per-frame top-1024
@@ -51,13 +53,17 @@ Phases (any failure stops the script with a non-zero exit):
   11. storage: storage_dtype "bfloat16" and "split" and gather_dtype
       "bfloat16". Each new kernel form against its plain version at the
       octave-0 inputs of its path (K1 and K2 forms at every fused octave; K1, K9,
-      K2 and K4 forms bit-exact, the
-      window kernels on bf16 levels within 1e-4); the split and gather16 K1
+      K2, K4 and K8 forms bit-exact, K4:bf16 also against K10 on the
+      widened DoG, K8:bf16 at every call of the bf16 perkey step and
+      against K5:bf16 on the bf16 step's lanes, with both device times;
+      the other window kernels on bf16 levels
+      within 1e-4); the split and gather16 K1
       against the f32 K1 bit for bit. Each mode's main step: its K1 form
       launched (bf16: K4 and not K3), split and gather16 with the f32 step's
       candidate and survivor counts and detection sets, bf16 with the share
       of f32 keypoints it finds by position; the median of 5 steps against 5
-      default steps interleaved with them, peak memory; bf16 with perkey
+      default steps interleaved with them, peak memory, a profile of one
+      step; bf16 with perkey
       (K8, K7 on bf16) equal to the bf16 step; the gather16 budget (K6′ on
       bf16) equal to the truncated gather16 output; card against CPU on the
       small image in each mode;
@@ -214,11 +220,37 @@ def window_samples(torch, scale, live, factor, r_max):
             float(((2 * r + 1) ** 2).sum()))
 
 
-def step_bytes(k: int, n_act: int, cube: int) -> int:
+def window_union_px(torch, plane, y, x, scale, live, factor, r_max, h, w):
+    """Plane pixels in the union of the live lanes' (2r+3)^2 windows (y, x
+    clamped into the plane, as the window kernels clamp them): what a
+    window kernel must read, each pixel once, where windows overlap."""
+    from sift_features_tpu_torch.ops.util import round_half_away
+
+    lv = live.bool()
+    if not bool(lv.any()):
+        return 0
+    r = torch.clamp(round_half_away(scale[lv] * factor), 0, r_max).long() + 1
+    e = r_max + 1
+    hp, wp = h + 2 * e, w + 2 * e
+    row0 = (plane[lv].long() * hp + torch.clamp(y[lv].long(), 0, h - 1) + e) * wp \
+        + torch.clamp(x[lv].long(), 0, w - 1) + e
+    off = torch.arange(-e, e + 1, device=r.device)
+    seen = torch.zeros((int(plane[lv].max()) + 1) * hp * wp, dtype=torch.bool,
+                       device=r.device)
+    for i in range(0, r.numel(), 2048):
+        ri = r[i:i + 2048, None, None]
+        inside = (off.abs()[None, :, None] <= ri) & (off.abs()[None, None, :] <= ri)
+        keys = row0[i:i + 2048, None, None] + off[None, :, None] * wp + off[None, None, :]
+        seen[keys[inside]] = True
+    return int(seen.sum())
+
+
+def step_bytes(k: int, n_act: int, cube: int, lane: int) -> int:
     """Bytes that one masked Newton step (K4, K10) needs: every lane's mask
-    or index (4 B) and row (64 B), and each active lane's position (12 B)
-    and cube (27 values, `cube` bytes in all)."""
-    return k * (4 + 16 * 4) + n_act * (3 * 4 + cube)
+    or index (`lane` bytes: K4's bool mask 1, K10's int32 index 4) and row
+    (64 B), and each active lane's position (12 B) and cube (27 values,
+    `cube` bytes in all)."""
+    return k * (lane + 16 * 4) + n_act * (3 * 4 + cube)
 
 
 def bound(nbytes: float, ops: float):
@@ -332,8 +364,10 @@ def device_ms(torch, fn, reps: int = 10) -> float:
 
 
 def refine_calls(torch, cap, cfg) -> dict:
-    """One call of each refine wrapper, K3, K4, K10 and K11, at K3's octave-0
-    candidates, their inputs cast to int32 first. Uses only wrapper names
+    """One call of each refine wrapper, K3, K4, K4:bf16, K10 and K11, at
+    K3's octave-0 candidates: K4 with the refine loop's own types (int32
+    positions, bool mask), K4:bf16 the same on a bf16 copy of the DoG, the
+    others with their inputs cast to int32 first. Uses only wrapper names
     the port has had since the kernels were ported, so kernel_ab.py can
     time an older checkout with it."""
     from sift_features_tpu_torch.ops.kernels import refine as kr
@@ -343,24 +377,23 @@ def refine_calls(torch, cap, cfg) -> dict:
     s0, y0, x0, valid = (t.int() for t in args[1:5])
     poff = kw["plane_off"].int()
     p = torch.clamp(s0, 1, cfg.scales_per_octave) + poff
+    mask = valid.bool()
+    dog16 = dog_flat.to(torch.bfloat16)
     g = kr.region_order(p, y0, x0, valid, *dog_flat.shape)
     lay = kr.tile_layout(dog_flat, s0, y0, x0, valid, pad, cfg, poff)
     return {"K3": lambda: kr.refine_walk(dog_flat, s0, y0, x0, valid, pad, h, w,
                                          cfg, plane_off=poff),
-            "K4": lambda: kr.refine_step(dog_flat, p, y0, x0, valid, cfg),
+            "K4": lambda: kr.refine_step(dog_flat, p, y0, x0, mask, cfg),
+            "K4:bf16": lambda: kr.refine_step(dog16, p, y0, x0, mask, cfg),
             "K10": lambda: kr.region_step(dog_flat, g, cfg),
             "K11": lambda: kr.refine_tile_slots(dog_flat, lay, pad, h, w, cfg)}
 
 
-def refine_device_ms(torch, cap, cfg) -> dict:
-    """Device time (device_ms) per call of the refine wrappers of
-    `refine_calls`; a wrapper that cannot be captured in a CUDA graph gets
-    the reason instead of a number. This tree's wrappers launch their kernel
-    alone on those inputs; an older checkout's may also cast or zero-fill on
-    the card, and then its time includes those kernels (`refine_kernel_ms`
-    separates them)."""
+def graph_device_ms(torch, calls: dict) -> dict:
+    """device_ms of each call; a call that cannot be captured in a CUDA
+    graph gets the reason instead of a number."""
     out = {}
-    for k, fn in refine_calls(torch, cap, cfg).items():
+    for k, fn in calls.items():
         try:
             out[k] = device_ms(torch, fn)
         except RuntimeError as e:
@@ -368,22 +401,108 @@ def refine_device_ms(torch, cap, cfg) -> dict:
     return out
 
 
-REFINE_KERNELS = {"K3": "refine_walk_kernel", "K4": "refine_step_kernel",
-                  "K10": "refine_region_kernel", "K11": "refine_tile_kernel"}
+def refine_device_ms(torch, cap, cfg) -> dict:
+    """Device time (device_ms) per call of the refine wrappers of
+    `refine_calls`. This tree's wrappers launch their kernel alone on those
+    inputs; an older checkout's may also cast or zero-fill on the card, and
+    then its time includes those kernels (`kernel_alone_ms` separates
+    them)."""
+    return graph_device_ms(torch, refine_calls(torch, cap, cfg))
 
 
-def refine_kernel_ms(torch, cap, cfg, reps: int = 10) -> dict:
-    """Device time per launch of each refine kernel alone, at the calls of
-    `refine_calls`: reps calls of every wrapper in one torch.profiler
-    (CUPTI) session, each kernel's time summed by its name, so the other
-    kernels a wrapper launches (an older checkout's casts and fills) are
-    left out; None where the session recorded no launch of it. Opens a
-    profiler, which slows every later launch in the process: call it after
-    all timing."""
+def bucket_lanes(plane, live, n_win, radii):
+    """The perkey dispatch's per-bucket compaction of window-kernel lanes:
+    for each scale bucket (level plane % n_win + 1) its lane indices as a
+    count prefix, the count (a device tensor) and the bucket's r_max."""
+    from sift_features_tpu_torch.utils.compact import compact_indices
+
+    level = plane % n_win + 1
+    out = []
+    for si, r_max in radii.items():
+        maskb = live.bool() & (level == si)
+        idx, _, n = compact_indices(maskb, maskb.numel())
+        out.append((idx, n, r_max))
+    return out
+
+
+def k8_runs(torch, args, cfg):
+    """K8's launches on K5's lanes (args: orientation_hist_peaks's
+    positional arguments), one
+    per scale bucket as the perkey dispatcher makes them: [(K8's
+    arguments, the bucket's live prefix as a bool mask, its lane indices
+    into K5's lanes)]."""
+    from sift_features_tpu_torch.ops.kernels import orientation as k5
+
+    gflat, plane, y, x, scale, live, h, w, pad = args[:9]
+    runs = []
+    for idx, n, r_max in bucket_lanes(plane, live, cfg.scales_per_octave,
+                                      k5.bucket_radii_ori(cfg)):
+        a = (gflat, plane[idx], y[idx], x[idx], scale[idx], n, h, w, pad,
+             r_max, cfg)
+        runs.append((a, torch.arange(idx.numel(), device=idx.device) < n, idx))
+    return runs
+
+
+def window_calls(torch, args, cfg) -> dict:
+    """K5 on every lane of its octave-0 call (args: orientation_hist_peaks's
+    positional arguments, f32 or bf16 planes) and K8's three bucket launches on the same lanes
+    (`k8_runs`), named by form. Uses only the wrapper names
+    orientation_hist_peaks and orientation_hist_perkey, so kernel_ab.py can
+    time an older checkout with it."""
+    from sift_features_tpu_torch.ops.kernels import orientation as k5
+
+    runs = k8_runs(torch, args, cfg)
+    f = "" if args[0].dtype == torch.float32 else ":bf16"
+    return {"K5" + f: lambda: k5.orientation_hist_peaks(*args),
+            "K8" + f: lambda: [k5.orientation_hist_perkey(*a) for a, _, _ in runs]}
+
+
+def window_device_ms(torch, args, cfg) -> dict:
+    """Device time (device_ms) per call of `window_calls`: K5's one launch
+    and K8's three (one per bucket) on the same lanes."""
+    return graph_device_ms(torch, window_calls(torch, args, cfg))
+
+
+# the kernels the profiler separates, by their demangled names (spaces
+# dropped) up to the argument list: this tree's and an older checkout's
+ALONE_KERNELS = {
+    "K3": ("refine_walk_kernel",),
+    "K4": ("refine_step_kernel<float>",),
+    "K4:bf16": ("refine_step_kernel<__nv_bfloat16>",),
+    "K10": ("refine_region_kernel",),
+    "K11": ("refine_tile_kernel",),
+    "K5": ("orientation_kernel<float,true>", "orientation_kernel<float>"),
+    "K8": ("orientation_kernel<float,false>", "orientation_perkey_kernel<float>")}
+
+
+def profiled_kernels(prof, names: dict) -> dict:
+    """{kernel: (summed device ms, launches)} of a torch.profiler session
+    for the kernels of `names` (ALONE_KERNELS' form)."""
     from torch.autograd import DeviceType
+
+    by_name = {n: k for k, ns in names.items() for n in ns}
+    out = dict.fromkeys(names, (0.0, 0))
+    for e in prof.key_averages():
+        k = by_name.get(e.key.removeprefix("void ").split("(")[0].replace(" ", ""))
+        if e.device_type == DeviceType.CUDA and k is not None:
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+            out[k] = (out[k][0] + us / 1e3, out[k][1] + e.count)
+    return out
+
+
+def kernel_alone_ms(torch, cap, cfg, reps: int = 10) -> dict:
+    """Device time per launch of each kernel of `refine_calls` and of the
+    f32 `window_calls` alone: reps calls of every wrapper in one
+    torch.profiler (CUPTI) session, each kernel's time summed by its name,
+    so the other kernels a wrapper launches (an older checkout's casts and
+    fills, K8's clamps) are left out; None where the session recorded no
+    launch of it. Opens a profiler, which slows every later launch in the
+    process: call it after all timing."""
     from torch.profiler import ProfilerActivity, profile
 
-    calls = refine_calls(torch, cap, cfg)
+    calls = {**refine_calls(torch, cap, cfg),
+             **window_calls(torch, cap["K5"][0], cfg)}
     for fn in calls.values():
         fn()
     torch.cuda.synchronize()
@@ -392,15 +511,8 @@ def refine_kernel_ms(torch, cap, cfg, reps: int = 10) -> dict:
             for _ in range(reps):
                 fn()
         torch.cuda.synchronize()
-    us, n = dict.fromkeys(calls, 0.0), dict.fromkeys(calls, 0)
-    names = {v: k for k, v in REFINE_KERNELS.items()}
-    for e in prof.key_averages():
-        k = names.get(e.key.removeprefix("void ").split("<")[0].split("(")[0])
-        if e.device_type == DeviceType.CUDA and k is not None:
-            us[k] += getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0))
-            n[k] += e.count
-    return {k: us[k] / 1e3 / n[k] if n[k] else None for k in calls}
+    got = profiled_kernels(prof, {k: ALONE_KERNELS[k] for k in calls})
+    return {k: ms / n if n else None for k, (ms, n) in got.items()}
 
 
 def k5_probe_lines(torch, k5, args, kw, ms):
@@ -490,20 +602,24 @@ def check_kernels(torch, cap, cfg, dev):
     record("K3", [outs[0]], [outs[1]], [plain], True, 0.0, ms, plain_ms,
            k3_bytes, 150 * sum(active),
            note=f"; active lanes per step {active} of {k}", dev_ms=refine_dev["K3"])
-    p = torch.clamp(s0, 1, cfg.scales_per_octave) + poff
-    k4_args = (dog_flat, p, y0, x0, valid, cfg)
+    # K4 as the refine loop calls it: int32 positions, a bool mask
+    p = torch.clamp(s0, 1, cfg.scales_per_octave).int() + poff.int()
+    k4_args = (dog_flat, p, y0.int(), x0.int(), valid.bool(), cfg)
     outs = [k34.refine_step(*k4_args) for _ in range(2)]
     plain = newton_step(*k4_args)
     ms = time_ms(torch, lambda: k34.refine_step(*k4_args), 10)
     plain_ms = time_ms(torch, lambda: newton_step(*k4_args), 2)
-    record("K4", [outs[0]], [outs[1]], [plain], True, 0.0, ms, plain_ms,
-           step_bytes(k, active[0], 27 * 4), 150 * active[0],
-           note=" (first step of the same candidates)", dev_ms=refine_dev["K4"])
+    record("K4", [nan_safe(torch, outs[0])], [nan_safe(torch, outs[1])],
+           [nan_safe(torch, plain)], True, 0.0, ms, plain_ms,
+           step_bytes(k, active[0], 27 * 4, 1), 150 * active[0],
+           note=f" (first step of the same candidates); K4:bf16 on a bf16 copy "
+                f"of the DoG: device {refine_dev['K4:bf16']}", dev_ms=refine_dev["K4"])
     del outs, plain
 
     # K5: orientation histograms + peaks. The plain version sums in the
     # kernel's order; the tolerance covers the f64 exp of two libraries
     args, kw = cap["K5"]
+    window_dev = window_device_ms(torch, args, cfg)
     outs = [k5.orientation_hist_peaks(*args, **kw) for _ in range(2)]
     plain = k5.orientation_plain(*args, **kw)
     scale, live = args[4], args[5]
@@ -513,7 +629,7 @@ def check_kernels(torch, cap, cfg, dev):
     plain_ms = time_ms(torch, lambda: k5.orientation_plain(*args, **kw), 1, 0)
     record("K5", outs[0], outs[1], plain, False, 1e-4, ms, plain_ms,
            4 * px + live.numel() * (5 * 4 + 41 * 4), 60 * smp,
-           note=f"; {n_live} live of {live.numel()} lanes")
+           note=f"; {n_live} live of {live.numel()} lanes", dev_ms=window_dev["K5"])
     del outs, plain
 
     # K6: descriptor histograms, same summation-order rule as K5
@@ -596,7 +712,7 @@ def check_kernels(torch, cap, cfg, dev):
            4 * px + live.numel() * (5 * 4 + 128 * 4) + 4, 100 * smp,
            note=f"; count {n_live} of {live.numel()} lanes")
     del outs, plain
-    check_mode_kernels(torch, cap, cfg, record, rows, refine_dev)
+    check_mode_kernels(torch, cap, cfg, record, rows, refine_dev, window_dev)
     return rows
 
 
@@ -605,12 +721,78 @@ def nan_safe(torch, t):
     return t.view(torch.int32)
 
 
-def check_mode_kernels(torch, cap, cfg, record, rows, refine_dev):
+def k8_calls_check(torch, calls, cfg, name):
+    """K8 (or K8:bf16) at the captured arguments of every call of a perkey
+    step (calls: capture_first_calls' "<kernel>*" list): two launches
+    identical and bit-equal to the plain version at each. Returns the
+    number of calls."""
+    from sift_features_tpu_torch.ops.kernels import orientation as k5
+
+    for args, _ in calls:
+        live = torch.arange(args[1].numel(), device=args[1].device) < args[5]
+        outs = [k5.orientation_hist_perkey(*args) for _ in range(2)]
+        plain = k5.orientation_raw_plain(*args[:5], live, *args[6:9], cfg, args[9])
+        if not (torch.equal(outs[0], outs[1]) and torch.equal(outs[0], plain)):
+            raise SystemExit(f"chip_smoke: {name} differs from its plain version "
+                             f"at a call of the perkey step (K={live.numel()}, "
+                             f"r_max {args[9]})")
+    if not calls:
+        raise SystemExit(f"chip_smoke: the perkey step made no {name} call")
+    return len(calls)
+
+
+def k8_check(torch, record, name, args5, cfg, window_dev, note):
+    """K8 (or K8:bf16) on K5's lanes (args5: orientation_hist_peaks's
+    positional arguments), one launch per scale bucket: each bucket's raw
+    rows bit-equal to the plain version and to K5's rows of the same lanes,
+    two launches identical; window_dev: the device times of K5 and K8 on
+    those lanes (window_device_ms)."""
+    from sift_features_tpu_torch.ops.kernels import orientation as k5
+
+    f = name[2:]
+    k5_raw = k5.orientation_hist_peaks(*args5)[0]
+    runs = k8_runs(torch, args5, cfg)
+    outs = [[k5.orientation_hist_perkey(*a) for a, _, _ in runs] for _ in range(2)]
+    plain = [k5.orientation_raw_plain(*a[:5], lv, *a[6:9], cfg, a[9])
+             for a, lv, _ in runs]
+    for o, (_, lv, idx) in zip(outs[0], runs):
+        if not torch.equal(o[lv], k5_raw[idx[lv]]):
+            raise SystemExit(f"chip_smoke: {name}'s raw rows differ from K5{f}'s")
+    ms = time_ms(torch, lambda: [k5.orientation_hist_perkey(*a) for a, _, _ in runs],
+                 10) / len(runs)
+    plain_ms = time_ms(torch, lambda: [k5.orientation_raw_plain(
+        *a[:5], lv, *a[6:9], cfg, a[9]) for a, lv, _ in runs], 1, 0) / len(runs)
+    nb = [window_samples(torch, a[4], lv, 3.0 * cfg.lambda_ori, a[9])
+          for a, lv, _ in runs]
+    # each launch reads its live lanes' inputs (plane, y, x, scale: 16 B) and
+    # the union of their windows once, and writes every lane's row and
+    # reads the count
+    px = [window_union_px(torch, a[1], a[2], a[3], a[4], lv, 3.0 * cfg.lambda_ori,
+                          a[9], a[6], a[7]) for a, lv, _ in runs]
+    n_lanes = sum(lv.numel() for _, lv, _ in runs)
+    n_live = sum(n_ for n_, _, _ in nb)
+    esz = args5[0].element_size()
+    dev = window_dev[name]
+    k5_dev = window_dev["K5" + f]
+    ratio = (f"{dev / k5_dev:.3f}x K5{f}'s {k5_dev:.4f}"
+             if isinstance(dev, float) and isinstance(k5_dev, float) else k5_dev)
+    record(name, outs[0], outs[1], plain, True, 0.0, ms, plain_ms,
+           (esz * sum(px) + n_live * 4 * 4 + n_lanes * 36 * 4 + 4 * len(runs))
+           / len(runs), 60 * sum(sm for _, _, sm in nb) / len(runs),
+           note=f" (per bucket launch, {len(runs)} buckets{note}); raw rows equal "
+                f"K5{f}'s; live per bucket {[n_ for n_, _, _ in nb]}; window "
+                f"pixels per bucket, union {px}, summed over lanes "
+                f"{[int(p_) for _, p_, _ in nb]}; device "
+                f"time of the {len(runs)} launches {dev}: {ratio}",
+           dev_ms=dev / len(runs) if isinstance(dev, float) else dev)
+
+
+def check_mode_kernels(torch, cap, cfg, record, rows, refine_dev, window_dev):
     """Phase 3 for the kernels of the other modes: K10 and K11 at K3's
     octave-0 candidates (refine_dev: their device times), K8 and K7 on
-    K5's and K6's lanes."""
-    from sift_features_tpu_torch.ops.kernels import (
-        descriptor as k6, orientation as k5, refine as kr)
+    K5's and K6's lanes (window_dev: K5's and K8's device times)."""
+    from sift_features_tpu_torch.ops.kernels import descriptor as k6
+    from sift_features_tpu_torch.ops.kernels import refine as kr
 
     args, kw = cap["K3"]
     dog_flat, s0, y0, x0, valid = args[:5]
@@ -639,7 +821,7 @@ def check_mode_kernels(torch, cap, cfg, record, rows, refine_dev):
     n_runs = int((keys[1:] != keys[:-1]).sum()) + 1 if n_act else 0
     record("K10", [nan_safe(torch, outs[0])], [nan_safe(torch, outs[1])],
            [nan_safe(torch, plain)], True, 0.0, ms, plain_ms,
-           step_bytes(k, active[0], 27 * 4), 150 * active[0],
+           step_bytes(k, active[0], 27 * 4, 4), 150 * active[0],
            note=f"; equal to K4 bit for bit; {n_runs} region runs for {n_act} "
                 f"active lanes; with the region sort {wrapper_ms:.4f} ms",
            dev_ms=refine_dev["K10"])
@@ -681,53 +863,14 @@ def check_mode_kernels(torch, cap, cfg, record, rows, refine_dev):
 
     # K8 and K7: one launch per scale bucket on the compacted lanes of that
     # bucket, as the perkey dispatchers launch them
-    def buckets(plane, live, n_win, radii):
-        from sift_features_tpu_torch.utils.compact import compact_indices
-
-        level = plane % n_win + 1
-        out = []
-        for si, r_max in radii.items():
-            maskb = live.bool() & (level == si)
-            idx, _, n = compact_indices(maskb, maskb.numel())
-            out.append((idx, n, r_max))
-        return out
-
     S = cfg.scales_per_octave
-    args5, kw5 = cap["K5"]
-    gflat, plane, y, x, scale, live = args5[:6]
-    k5_raw = k5.orientation_hist_peaks(*args5, **kw5)[0]
-    runs = []
-    for idx, n, r_max in buckets(plane, live, S, k5.bucket_radii_ori(cfg)):
-        a = (gflat, plane[idx], y[idx], x[idx], scale[idx], n, h, w, pad,
-             r_max, cfg)
-        lv = torch.arange(idx.numel(), device=idx.device) < n
-        runs.append((a, lv, idx, n, r_max))
-    outs = [[k5.orientation_hist_perkey(*a) for a, *_ in runs] for _ in range(2)]
-    plain = [k5.orientation_raw_plain(*a[:5], lv, *a[6:9], cfg, r_max)
-             for a, lv, _, _, r_max in runs]
-    for o, (_, lv, idx, _, _) in zip(outs[0], runs):
-        if not torch.equal(o[lv], k5_raw[idx[lv]]):
-            raise SystemExit("chip_smoke: K8's raw rows differ from K5's")
-    ms = time_ms(torch, lambda: [k5.orientation_hist_perkey(*a) for a, *_ in runs],
-                 10) / len(runs)
-    plain_ms = time_ms(torch, lambda: [k5.orientation_raw_plain(
-        *a[:5], lv, *a[6:9], cfg, r_max) for a, lv, _, _, r_max in runs],
-        1, 0) / len(runs)
-    nb = [window_samples(torch, a[4], lv, 3.0 * cfg.lambda_ori, r_max)
-          for a, lv, _, _, r_max in runs]
-    n_lanes = sum(lv.numel() for _, lv, *_ in runs)
-    record("K8", outs[0], outs[1], plain, False, 1e-4, ms, plain_ms,
-           (4 * sum(px for _, px, _ in nb) + n_lanes * (4 * 4 + 36 * 4) + 4
-            * len(runs)) / len(runs), 60 * sum(sm for _, _, sm in nb) / len(runs),
-           note=f" (per bucket launch, {len(runs)} buckets); raw rows equal "
-                f"K5's; live per bucket {[n_ for n_, _, _ in nb]}")
-    del outs, plain
-
+    args5 = cap["K5"][0]
+    k8_check(torch, record, "K8", args5, cfg, window_dev, "")
     args6, kw6 = cap["K6"]
     gflat, plane, xi, yi, scale, angle, live = args6[:7]
     k6_raw = k6.descriptor_hist(*args6, **kw6)
     runs = []
-    for idx, n, r_max in buckets(plane, live, S, k6.bucket_radii(cfg)):
+    for idx, n, r_max in bucket_lanes(plane, live, S, k6.bucket_radii(cfg)):
         a = (gflat, plane[idx], xi[idx], yi[idx], scale[idx], angle[idx], n, h,
              w, pad, r_max, cfg)
         lv = torch.arange(idx.numel(), device=idx.device) < n
@@ -1124,7 +1267,7 @@ def check_storage_kernels(torch, extractor, frames, cfgs, cfg, dev, rows):
         "K7": (KMOD + "descriptor", "descriptor_hist_perkey")},
         lambda: extractor.extract_batch(
             frames, dataclasses.replace(cfgs["bfloat16"], window_kernel="perkey"),
-            device=dev))
+            device=dev), every=("K8",))
     base16, base32 = cap["K1"][0][0], cap_g["K1"][0][0]
     if base16.dtype != bf16 or base32.dtype != torch.float32:
         raise SystemExit("chip_smoke: storage bases of the wrong type")
@@ -1218,19 +1361,26 @@ def check_storage_kernels(torch, extractor, frames, cfgs, cfg, dev, rows):
            note=f"; bit-exact at {len(calls)} octaves")
     stream_probe_line(torch, k2, dog, bounds, cfg, "K2:bf16", ms, work[0])
     del outs, plain, calls
+    # K4:bf16 as the bf16 step's refine loop calls it; its rows also equal
+    # K10's on the f32 widening of the same DoG (exact)
     args, _ = cap["K4"]
-    dog_flat, p, y, x, active = args[:5]
+    dog_flat, p, active = args[0], args[1], args[4]
     n_act = int(active.sum())
     outs = [k34.refine_step(*args) for _ in range(2)]
     plain = newton_step(*args)
+    k10 = k34.refine_step_region(dog_flat.float(), *args[1:])
+    if not torch.equal(nan_safe(torch, outs[0]), nan_safe(torch, k10)):
+        raise SystemExit("chip_smoke: K4:bf16 disagrees with K10 on the widened DoG")
     ms = time_ms(torch, lambda: k34.refine_step(*args), 10)
+    dev_ms = device_ms(torch, lambda: k34.refine_step(*args))
     plain_ms = time_ms(torch, lambda: newton_step(*args), 2)
     record("K4:bf16", [nan_safe(torch, outs[0])], [nan_safe(torch, outs[1])],
            [nan_safe(torch, plain)], True, 0.0, ms, plain_ms,
-           step_bytes(p.numel(), n_act, 27 * 2), 150 * n_act,
-           note=f" (first Newton step at octave 0: {n_act} active of "
-                f"{p.numel()} lanes)")
-    del outs, plain
+           step_bytes(p.numel(), n_act, 27 * 2, active.element_size()), 150 * n_act,
+           note=f" (first Newton step of the bf16 step at octave 0: {n_act} "
+                f"active of {p.numel()} lanes); equal to K10 on the widened "
+                f"DoG bit for bit", dev_ms=dev_ms)
+    del outs, plain, k10
 
     # the window kernels on bf16 Gaussian levels: within 1e-4 of the plain
     # versions, two launches identical
@@ -1266,19 +1416,14 @@ def check_storage_kernels(torch, extractor, frames, cfgs, cfg, dev, rows):
            2 * wpx + live.numel() * (5 * 4 + 128 * 4) + 4, 100 * smp,
            note=f" (gather16 budget, octave 0); count {n_live} of "
                 f"{live.numel()} lanes")
-    args, _ = cap_p["K8"]
-    live = torch.arange(args[1].numel(), device=dev) < args[5]
-    outs = [k5.orientation_hist_perkey(*args) for _ in range(2)]
-    plain = k5.orientation_raw_plain(*args[:5], live, *args[6:9], cfg, args[9])
-    n_live, wpx, smp = window_samples(torch, args[4], live, 3.0 * cfg.lambda_ori,
-                                      args[9])
-    ms = time_ms(torch, lambda: k5.orientation_hist_perkey(*args), 10)
-    plain_ms = time_ms(torch, lambda: k5.orientation_raw_plain(
-        *args[:5], live, *args[6:9], cfg, args[9]), 1, 0)
-    record("K8:bf16", [outs[0]], [outs[1]], [plain], False, 1e-4, ms, plain_ms,
-           2 * wpx + live.numel() * (4 * 4 + 36 * 4) + 4, 60 * smp,
-           note=f" (perkey, octave 0, scale bucket 1 of 3, r_max {args[9]}); "
-                f"count {n_live} of {live.numel()} lanes")
+    # K8:bf16 at every call of the bf16 perkey step (each octave and
+    # bucket) against the plain version bit for bit; then on the bf16
+    # step's K5 lanes, one launch per bucket, against the plain version and
+    # K5:bf16 bit for bit, with both device times
+    n_calls = k8_calls_check(torch, cap_p.get("K8*", []), cfg, "K8:bf16")
+    k8_check(torch, record, "K8:bf16", cap["K5"][0], cfg,
+             window_device_ms(torch, cap["K5"][0], cfg),
+             f", bf16 step; all {n_calls} calls of the bf16 perkey step bit-exact")
     args, _ = cap_p["K7"]
     live = torch.arange(args[1].numel(), device=dev) < args[6]
     outs = [k6.descriptor_hist_perkey(*args) for _ in range(2)]
@@ -1435,6 +1580,8 @@ def storage_phase(torch, extractor, match_dense, frames, res_full, cfg, dev,
                     "default_median_step_ms_interleaved":
                         statistics.median(base_s) * 1e3,
                     "default_step_ms_interleaved": [t * 1e3 for t in base_s]})
+        row["profiled_step_kernel_ms"] = profile_step(
+            torch, lambda: step(mcfg), row["median_step_ms"], f"{mode}-profile", top=6)
         print(f"[storage] {mode}: {note}; kps/frame {kps_frame}; median "
               f"{row['median_step_ms']:.1f} ms of 5 steps against "
               f"{row['default_median_step_ms_interleaved']:.1f} ms for the "

@@ -7,20 +7,24 @@ Runs, for each directory in the order given and each in a process of its
 own (so each imports its own `sift_features_tpu_torch` and builds its own
 kernels), that checkout's `chip_smoke.py` kernel phases on the 1080p B=4
 batch: phase 3 (every kernel against its plain version, per-launch times,
-bounds) and phase 11a (the storage forms), the device time of the refine
-kernels K3, K4, K10 and K11 (`refine_device_ms` of the chip_smoke.py
-beside this script, run on that checkout's package: CUDA graph replays of
-the wrappers), then phase 4's per-kernel
-device time inside one main step (CUDA events around each wrapper call),
-the matcher's `match_ms` on that step's descriptors (phase 4's measure:
-CUDA events around the B cross-check matches, here over 20 repetitions),
-the median of 10 main steps (host clock around each, ending in a
-synchronize), the peak memory of each stage of `extract_batch` in the
+bounds) and phase 11a (the storage forms); the device time of the refine
+kernels K3, K4, K4:bf16, K10 and K11 (`refine_device_ms` of the
+chip_smoke.py beside this script, run on that checkout's package: CUDA
+graph replays of the wrappers) and of the window kernels K5 and K8 (K8's
+three bucket launches on K5's lanes, `window_device_ms`), f32 on the main
+step's octave-0 lanes and bf16 on the bf16 step's; then phase 4's
+per-kernel device time inside one main step (CUDA events around each
+wrapper call), the matcher's `match_ms` on that step's descriptors (phase
+4's measure: CUDA events around the B cross-check matches, here over 20
+repetitions), the median of 10 main steps (host clock around each, ending
+in a synchronize), the peak memory of each stage of `extract_batch` in the
 default and the storage modes and, last (a profiler session slows every
-later launch in its process), the device time of each refine kernel
-alone by torch.profiler (`refine_kernel_ms`: an older checkout's wrappers
-also cast and zero-fill on the card, which its `refine_device_ms`
-includes). Prints each run's lines and, at the end,
+later launch in its process), two torch.profiler sessions: each refine
+kernel and K5 and K8 alone (`kernel_alone_ms`: an older checkout's
+wrappers also cast and zero-fill on the card, which its device times
+include, and K8's wrapper clamps), then one window_kernel="perkey" step
+and one storage_dtype="bfloat16" step, with K8's launches in the first
+and K4:bf16's in the second summed. Prints each run's lines and, at the end,
 one table of per-launch times by kernel and run and the step medians by
 run; with --out, writes every number to that JSON file. Comparing
 checkouts within one run, parent / change / change / parent, keeps the
@@ -33,6 +37,24 @@ import statistics
 import subprocess
 import sys
 import time
+
+
+def step_kernels(torch, cs_here, steps) -> dict:
+    """{"K8": ..., "K4:bf16": ...}: (summed device ms, launches) of each in
+    one torch.profiler session around steps (a warm perkey step, where K8
+    runs, and a warm bf16 step, where K4:bf16 runs)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in steps:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in steps:
+            fn()
+        torch.cuda.synchronize()
+    got = cs_here.profiled_kernels(prof, {k: cs_here.ALONE_KERNELS[k]
+                                          for k in ("K8", "K4:bf16")})
+    return {k: {"ms": ms, "launches": n} for k, (ms, n) in got.items()}
 
 
 def one(tree: str) -> dict:
@@ -65,15 +87,20 @@ def one(tree: str) -> dict:
     build_s = time.perf_counter() - t0
     ptxas = [f"{src}: {ln.strip()}" for src, log in logs.items()
              for ln in log.splitlines()
-             if src in ("pyramid", "descriptor", "refine") and (
+             if src in ("pyramid", "descriptor", "refine", "orientation") and (
                  "registers" in ln or "spill" in ln or "Compiling entry" in ln)]
     frames = cs.make_frames(cs.B)
     cap = cs.capture_octave0(torch, extractor, frames, dev)
     rows = cs.check_kernels(torch, cap, cfg, dev)
     refine_dev = cs_here.refine_device_ms(torch, cap, cfg)
-    del cap
-    torch.cuda.empty_cache()
     cfgs = {m: dataclasses.replace(cfg, **f) for m, (f, _, _) in cs.STORAGE.items()}
+    cap16 = cs_here.capture_first_calls(
+        torch, {"K5": (cs_here.EXTRACTOR, "orientation_hist_peaks")},
+        lambda: extractor.extract_batch(frames, cfgs["bfloat16"], device=dev))
+    window_dev = {**cs_here.window_device_ms(torch, cap["K5"][0], cfg),
+                  **cs_here.window_device_ms(torch, cap16["K5"][0], cfg)}
+    del cap, cap16
+    torch.cuda.empty_cache()
     cs.check_storage_kernels(torch, extractor, frames, cfgs, cfg, dev, rows)
     torch.cuda.empty_cache()
 
@@ -117,11 +144,16 @@ def one(tree: str) -> dict:
     for mode, c in cfgs.items():
         stage_peaks[mode] = cs.stage_peaks(torch, extractor, lambda c=c: step(c))
     cap = cs.capture_octave0(torch, extractor, frames, dev)
-    refine_kernel = cs_here.refine_kernel_ms(torch, cap, cfg)
+    alone = cs_here.kernel_alone_ms(torch, cap, cfg)
+    del cap
+    in_steps = step_kernels(torch, cs_here, [
+        lambda: step(dataclasses.replace(cfg, window_kernel="perkey")),
+        lambda: step(cfgs["bfloat16"])])
     return {"tree": tree, "card": cs.nvidia_smi_line(),
             "device": torch.cuda.get_device_name(0), "build_s": build_s,
             "ptxas": ptxas, "rows": rows, "refine_device_ms": refine_dev,
-            "refine_kernel_ms": refine_kernel,
+            "window_device_ms": window_dev, "kernel_alone_ms": alone,
+            "kernels_in_steps": in_steps,
             "kernel_ms_in_step": in_step,
             "launches_in_step": {k: len(v) for k, v in events.items()},
             "match_ms": match_ms, "step_ms": step_ms,
@@ -167,10 +199,20 @@ def main(argv) -> int:
         ms = " / ".join(f"{v:.4f}" if isinstance(v, float) else str(v) for v in
                         (r["refine_device_ms"][k] for r in runs))
         print(f"[kernel_ab] {k:9s} device ms per launch {ms}")
-    for k in runs[-1]["refine_kernel_ms"]:
+    for k in runs[-1]["window_device_ms"]:
+        ms = " / ".join(f"{v:.4f}" if isinstance(v, float) else str(v) for v in
+                        (r["window_device_ms"][k] for r in runs))
+        what = "its 3 bucket launches" if k.startswith("K8") else "one launch"
+        print(f"[kernel_ab] {k:9s} device ms, {what} on the octave-0 lanes: {ms}")
+    for k in runs[-1]["kernel_alone_ms"]:
         ms = " / ".join("not recorded" if v is None else f"{v:.4f}" for v in
-                        (r["refine_kernel_ms"][k] for r in runs))
+                        (r["kernel_alone_ms"][k] for r in runs))
         print(f"[kernel_ab] {k:9s} kernel alone (profiled) ms per launch {ms}")
+    for k in runs[-1]["kernels_in_steps"]:
+        ms = " / ".join(f"{r['kernels_in_steps'][k]['ms']:.4f} ms in "
+                        f"{r['kernels_in_steps'][k]['launches']}" for r in runs)
+        print(f"[kernel_ab] {k:9s} device ms in one step (perkey for K8, bf16 "
+              f"for K4:bf16), launches: {ms}")
     for k in runs[-1]["kernel_ms_in_step"]:
         ms = " / ".join(f"{r['kernel_ms_in_step'].get(k, 0):.3f}" for r in runs)
         print(f"[kernel_ab] in one main step: {k} {ms} ms")

@@ -51,8 +51,9 @@ __device__ __forceinline__ float rust_round(float x) {
 // exact), so each case rounds as before and both forms give the same bits.
 // Which is faster depends on the kernel around it: on an H100 80GB HBM3 at
 // 700 W (kernel_ab.py, two divisions then one, ms per octave-0 launch, the
-// mean of two runs each in turns) K5 0.155 / 0.138 and K8 0.117 / 0.111
-// per bucket, but K6 1.312 / 1.351 and K6' 0.363 / 0.368 (K7, which shares
+// mean of two runs each in turns) K5 0.155 / 0.138 and K8 (its former
+// block-per-lane kernel) 0.117 / 0.111 per bucket, but K6 1.312 / 1.351 and
+// K6' 0.363 / 0.368 (K7, which shares
 // K6's sample code, 0.684 / 0.663 per bucket in another such comparison).
 // So orientation.cu takes the one division and descriptor.cu the two.
 template <bool ONE_DIV = false>

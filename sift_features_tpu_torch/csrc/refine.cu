@@ -13,13 +13,19 @@
 // share the walk around it (`newton_walk`).
 //
 // Design on the H100: one thread per candidate (K3, K4, K10) or per slot
-// (K11), each reading its 27-value cube straight from the flat DoG
-// (B * (S+2), H_pad, W_pad) through L1/L2, with the frame's plane offset.
-// None stages a window in shared memory: the TPU kernels shared one DMA'd
-// VMEM window among co-located candidates, but on this card a candidate's
-// cube is 108 B against a window of kilobytes, and candidates that sit in
-// neighbouring threads (K10's region order, K11's slot order) share cache
-// lines anyway. Rows are written with four 16-byte stores.
+// (K11), blocks of 128 threads, each reading its 27-value cube straight
+// from the flat DoG (B * (S+2), H_pad, W_pad) through L1/L2, with the
+// frame's plane offset. None stages a window in shared memory: the TPU
+// kernels shared one DMA'd VMEM window among co-located candidates, but on
+// this card a candidate's cube is 108 B against a window of kilobytes, and
+// candidates that sit in neighbouring threads (K10's region order, K11's
+// slot order) share cache lines anyway. K3, K10 and K11 write each row
+// with four 16-byte stores (`store_row`): as 16 scalar stores, each store
+// instruction of a warp touched 32 rows 64 bytes apart, and the vector
+// stores halved K3's device time (0.031 -> 0.016 ms per 1080p B=4 octave-0
+// launch, NVIDIA H100 80GB HBM3, 700 W). K4, whose rows are consecutive
+// lanes, stages a warp's rows and writes them 512 contiguous bytes a store
+// (`store_rows_warp`).
 //
 // Bound on the H100: the bytes, each read and written once. A candidate
 // reads its cube (108 B) per step and its inputs, and writes a 64-byte
@@ -32,7 +38,7 @@
 // dispatch sends a non-f32 stack to the step loop in every refine_mode
 // (ops/extrema.py:refine_tpu_auto; the walk, region and tile kernels assert
 // f32). `newton_at` is a template on the stack type and widens each cube
-// value to f32 at the load; only K4 is built for bf16.
+// value to f32 at the load (exact); only K4 is built for bf16.
 #include "common.cuh"
 
 struct NewtonParams {
@@ -139,29 +145,58 @@ __device__ __forceinline__ void store_row(float* __restrict__ row, const float v
   r4[3] = make_float4(v[12], v[13], v[14], v[15]);
 }
 
-// K4: rows (K, 16) = ok | step_s | step_y | step_x | off_s | off_y | off_x |
-// response | keep | 0...; all zero where active == 0. p/y/x are clamped
-// into [1, n_planes-2] x [1, Hp-2] x [1, Wp-2] like the plain gather.
-template <typename T>
-__global__ void refine_step_kernel(const T* __restrict__ dog, int n_planes,
-                                   int Hp, int Wp, const int* __restrict__ p,
-                                   const int* __restrict__ y,
-                                   const int* __restrict__ x,
-                                   const int* __restrict__ active,
-                                   float* __restrict__ out, int K,
-                                   NewtonParams prm) {
-  int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;
-  float* row = out + (long long)k * 16;
-  float vals[16];
-  for (int j = 0; j < 16; ++j) vals[j] = 0.0f;
-  if (active[k]) {
-    NewtonResult r = newton_at(dog, (long long)Hp * Wp, Wp,
-                               clampi(p[k], 1, n_planes - 2),
-                               clampi(y[k], 1, Hp - 2), clampi(x[k], 1, Wp - 2), prm);
-    step_row(r, vals);
+// The rows of a warp's 32 threads, thread j's row k (k = the warp's first
+// row + j, rows past K not written), in blocks of 128 threads: staged in
+// shared memory (2 KB a warp), then written as 16-byte stores of 32
+// neighbouring threads, 512 contiguous bytes a store instruction. Row r
+// holds its four 16-byte quarters q at r * 4 + ((q + r / 2) & 3), so
+// neither the writes nor the reads of a quarter-warp meet in a bank. Every
+// thread of the warp must call it.
+__device__ __forceinline__ void store_rows_warp(float* __restrict__ out, int k, int K,
+                                                const float v[16]) {
+  __shared__ float4 stage[4][128];
+  const int lane = threadIdx.x & 31;
+  float4* st = stage[threadIdx.x >> 5];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    st[lane * 4 + ((q + (lane >> 1)) & 3)] =
+        make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+  __syncwarp();
+  const long long k0 = (long long)k - lane;
+  float4* o = reinterpret_cast<float4*>(out + k0 * 16);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int g = q * 32 + lane, r = g >> 2;
+    if (k0 + r < K) o[g] = st[r * 4 + (((g & 3) + (r >> 1)) & 3)];
   }
-  for (int j = 0; j < 16; ++j) row[j] = vals[j];
+}
+
+// K4: rows (K, 16) = ok | step_s | step_y | step_x | off_s | off_y | off_x |
+// response | keep | 0...; all zero where active[k] == 0. active is one byte
+// a lane (the refine loop's bool mask, passed as it is); an inactive lane
+// reads nothing else. p/y/x are clamped into [1, n_planes-2] x [1, Hp-2] x
+// [1, Wp-2] like the plain gather. One thread per lane over ceil(K / 128)
+// blocks; each warp writes its rows with `store_rows_warp`. With `store_row`
+// (four 16-byte stores a thread, each store instruction of the warp 32
+// rows 64 bytes apart) K4 took 2-14% more device time at the 1080p B=4
+// octave 0 (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+//
+// Bound on the H100: the bytes. Every lane's mask byte and row (65 B) and
+// each active lane's position (12 B) and cube (108 B f32, 54 B bf16).
+template <typename T>
+__global__ void __launch_bounds__(128) refine_step_kernel(
+    const T* __restrict__ dog, int n_planes, int Hp, int Wp, const int* __restrict__ p,
+    const int* __restrict__ y, const int* __restrict__ x,
+    const unsigned char* __restrict__ active, float* __restrict__ out, int K,
+    NewtonParams prm) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  float vals[16];
+  for (int c = 0; c < 16; ++c) vals[c] = 0.0f;
+  if (k < K && active[k])
+    step_row(newton_at(dog, (long long)Hp * Wp, Wp, clampi(p[k], 1, n_planes - 2),
+                       clampi(y[k], 1, Hp - 2), clampi(x[k], 1, Wp - 2), prm),
+             vals);
+  store_rows_warp(out, k, K, vals);
 }
 
 // Where a walk reads its cubes: DoG plane clamp(clamp(s, 1, n_scales) +
@@ -239,10 +274,11 @@ __global__ void refine_walk_kernel(const float* __restrict__ dog, int n_planes,
   store_row(out + (long long)k * 16, vals);
 }
 
-// dog (n_planes, Hp, Wp) of type dog_t (f32 or bf16).
+// dog (n_planes, Hp, Wp) of type dog_t (f32 or bf16); p/y/x (K,) int32;
+// active (K,) bool (one byte).
 SIFT_EXPORT int sift_refine_step(const void* dog, int dog_t, int n_planes, int Hp,
                                  int Wp, const int* p, const int* y, const int* x,
-                                 const int* active, float* out, int K,
+                                 const unsigned char* active, float* out, int K,
                                  float contrast_threshold, float edge_threshold,
                                  float n_scales, cudaStream_t stream) {
   if (dog_t != SIFT_F32 && dog_t != SIFT_BF16) return (int)cudaErrorInvalidValue;

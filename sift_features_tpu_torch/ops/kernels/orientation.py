@@ -19,7 +19,10 @@ K8 (`orientation_hist_perkey`, count prefix, no peaks) replaces
 ops/pallas/orientation_kernel.py:orientation_histograms_pallas, which the
 JAX dispatcher launches per scale bucket with the bucket's static window
 bound when window_kernel="perkey"; `orientation_histograms_bucketed` here
-does the same then.
+does the same then. It runs the same CUDA kernel as K5, instantiated
+without the peak code and with the bucket's bound for the window
+half-width, so its raw rows equal K5's wherever a lane's radius is within
+that bound.
 
 The Gaussian stack may be f32 or bf16 (the storage modes; launches count
 as `K5:bf16`, `K5′:bf16`, `K8:bf16`): the kernels widen each sample to f32
@@ -244,10 +247,12 @@ def orientation_hist_perkey(gauss_flat: torch.Tensor, plane, y, x, kp_scale,
                             count, h: int, w: int, pad: int, r_max: int,
                             cfg: SiftConfig) -> torch.Tensor:
     """K8 wrapper -> raw (K, n_bins) f32 histograms over windows of
-    half-width <= r_max; lane i is live iff i < count, a 0-d integer tensor
-    on gauss_flat's device. The plain version for a CPU tensor; the CUDA
-    kernel, which reads the count on the card, for a CUDA tensor (or an
-    error)."""
+    half-width <= r_max (<= R_ORI_MAX), zero for lanes >= count; lane i is
+    live iff i < count, a 0-d integer tensor on gauss_flat's device. The
+    plain version for a CPU tensor; for a CUDA tensor (or an error) K5's
+    kernel without peaks (csrc/orientation.cu), which reads the count on
+    the card. The plane, row and column are clamped here, as the plain
+    version clamps them."""
     if gauss_flat.device.type == "cpu":
         live = torch.arange(plane.shape[0]) < count
         return orientation_raw_plain(gauss_flat, plane, y, x, kp_scale, live,

@@ -63,10 +63,14 @@ def refine_step(dog_flat: torch.Tensor, p, y, x, active,
     """K4 wrapper: one masked Newton step at plane p / row y / column x of
     dog_flat (P, Hp, Wp), f32 or bf16. The plain version
     (ops/extrema.py:newton_step) for a CPU tensor; the CUDA kernel for a
-    CUDA tensor (or an error)."""
+    CUDA tensor (or an error). The kernel reads the mask as one byte a
+    lane, so the refine loop's int32 positions and bool mask pass as they
+    are and the call launches that kernel alone; another mask is converted
+    with .bool(), as the plain version reads it."""
     if dog_flat.device.type == "cpu":
         return newton_step(dog_flat, p, y, x, active, cfg)
-    p, y, x, active = _i32(p), _i32(y), _i32(x), _i32(active)
+    p, y, x = _i32(p), _i32(y), _i32(x)
+    active = (active if active.dtype == torch.bool else active.bool()).contiguous()
     build.require_cuda("refine_step", dog_flat, p, y, x, active)
     dog_t = build.dtype_code("refine_step", dog_flat)
     n_planes, hp, wp = dog_flat.shape

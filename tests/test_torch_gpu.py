@@ -648,6 +648,111 @@ def test_k10_edges_bit_exact(dev):
     assert not torch.isfinite(k10[:, 4:8]).all()
 
 
+def test_k4_edges_bit_exact(dev):
+    """K4 on an f32 and a bf16 DoG: inactive lanes holding positions far
+    outside the stack (zero rows, nothing read), lanes on a flat patch, a
+    patch of 1e-15 noise and patches of NaN and of infinities (non-finite
+    offsets and responses), positions past the plane, row and column
+    clamps, and K = 1, 129 and all lanes: rows bit-equal (NaN-safe) to the
+    plain step and to K10's on the f32 widening of the same DoG, the same
+    for the loop's bool mask and an int32 mask, two launches identical."""
+    from sift_features_tpu_torch.ops.extrema import newton_step
+    from sift_features_tpu_torch.ops.kernels.refine import (
+        refine_step, refine_step_region)
+
+    flat, s0, y0, x0, valid, poff, _ = _candidates(dev, k=150)
+    rng = np.random.RandomState(12)
+    flat = flat.clone()
+    n_p, hp, wp = flat.shape
+    flat[:, 60:80, 60:100] = 0.25
+    flat[:, 100:120, 60:100] = torch.from_numpy(
+        rng.randn(n_p, 20, 40).astype(np.float32) * 1e-15).to(dev)
+    flat[:, 130:140, 60:80] = float("nan")
+    flat[:, 130:140, 80:100] = float("inf")
+    flat[1::2, 130:140, 90:100] = float("-inf")
+    n = 64
+    p = torch.clamp(s0, 1, CFG.scales_per_octave).int() + poff.int()
+    pp = torch.from_numpy(rng.randint(1, 4, n)).to(dev, torch.int32)
+    yy = torch.from_numpy(np.r_[rng.randint(62, 78, n // 4), rng.randint(102, 118, n // 4),
+                                rng.randint(129, 141, n // 2)]).to(dev, torch.int32)
+    xx = torch.from_numpy(rng.randint(58, 102, n)).to(dev, torch.int32)
+    # past the clamps: planes 0 and n_planes - 1, rows and columns outside
+    ep = torch.tensor([0, n_p - 1, 2, 2, 2], device=dev, dtype=torch.int32)
+    ey = torch.tensor([70, 70, 0, hp + 5, -7], device=dev, dtype=torch.int32)
+    ex = torch.tensor([70, 70, wp - 1, -3, wp + 9], device=dev, dtype=torch.int32)
+    # inactive lanes with positions no stack holds
+    big = torch.tensor([2 ** 30, -2 ** 30, 2 ** 31 - 1], device=dev, dtype=torch.int32)
+    p = torch.cat([p, pp, ep, big])
+    y = torch.cat([y0.int(), yy, ey, big.flip(0)])
+    x = torch.cat([x0.int(), xx, ex, big])
+    act = torch.cat([valid.bool(), torch.ones(n + 5, device=dev, dtype=torch.bool),
+                     torch.zeros(3, device=dev, dtype=torch.bool)])
+    bits = lambda t: t.view(torch.int32)  # noqa: E731 (NaN-safe equality)
+    for dog in (flat, flat.to(torch.bfloat16)):
+        for k in (1, 129, p.numel()):
+            a = (p[:k], y[:k], x[:k], act[:k])
+            got = refine_step(dog, *a, CFG)
+            again = refine_step(dog, *a, CFG)
+            as_int = refine_step(dog, *a[:3], a[3].int(), CFG)
+            k10 = refine_step_region(dog.float(), *a, CFG)
+            torch.cuda.synchronize()
+            for other in (again, as_int, k10, newton_step(dog, *a, CFG)):
+                assert torch.equal(bits(got), bits(other)), (dog.dtype, k)
+            assert not got[~a[3]].any()
+        assert not torch.isfinite(got[:, 4:8]).all(), dog.dtype
+        assert int(got[:, 0].sum()) > 5
+
+
+def test_k8_edges_bit_exact(dev):
+    """K8 (K5's kernel without peaks) on f32 and bf16 levels at each bucket
+    bound r_max: lanes on image rows and columns 0, 1, h-2 and h-1, lanes
+    whose radius exceeds r_max (clamped to it), K = 1 and K = 301 (not a
+    multiple of the 32 x 5 lanes a block's warps take in a round), count 0,
+    1 and K: raw rows bit-equal to the plain version's (zero past the
+    count), two launches identical, and equal to K5's raw rows on the live
+    lanes whose radius is within r_max."""
+    from sift_features_tpu_torch.ops.kernels.orientation import (
+        bucket_radii_ori, orientation_hist_peaks, orientation_hist_perkey,
+        orientation_raw_plain)
+    from sift_features_tpu_torch.ops.util import round_half_away
+
+    c = _survivor_windows(dev, n=301)
+    n = c["plane"].numel()
+    h, w = c["h"], c["w"]
+    L = CFG.scales_per_octave
+    scale, plane = c["kp_scale"].clone(), c["plane"].clone()
+    y, x = c["y"].clone(), c["x"].clone()
+    # every pair of rows 0, 1, h-2, h-1 and columns 0, 1, w-2, w-1, at
+    # radius 16 on level 3; then radius 18 (past every bound), 0 and 11
+    edge_y, edge_x = (0, 1, h - 2, h - 1), (0, 1, w - 2, w - 1)
+    yx = torch.tensor([(a, b) for a in edge_y for b in edge_x], device=dev)
+    y[:16], x[:16] = yx[:, 0].to(y.dtype), yx[:, 1].to(x.dtype)
+    scale[:16], plane[:16] = 3.59, plane[:16] - plane[:16] % L + 2
+    scale[16:20], scale[20:24], scale[24:28] = 4.0, 0.05, 2.5
+    radii = round_half_away(scale * np.float32(3.0 * CFG.lambda_ori))
+    assert int(radii[:16].min()) == 16 and int(radii[16:20].min()) == 18
+    tail = (h, w, P)
+    for g in (c["gauss_flat"], c["gauss_flat"].to(torch.bfloat16)):
+        lanes = (g, plane, y, x, scale)
+        k5 = orientation_hist_peaks(*lanes, torch.ones_like(c["live"]), *tail, CFG)[0]
+        for r_max in sorted(set(bucket_radii_ori(CFG).values())):
+            for k, counts in ((1, (0, 1)), (n, (0, 1, 173, n))):
+                a = tuple(t[:k] for t in lanes[1:])
+                for cnt in counts:
+                    count = torch.tensor(cnt, device=dev)
+                    got = orientation_hist_perkey(g, *a, count, *tail, r_max, CFG)
+                    again = orientation_hist_perkey(g, *a, count, *tail, r_max, CFG)
+                    torch.cuda.synchronize()
+                    live = torch.arange(k, device=dev) < count
+                    plain = orientation_raw_plain(g, *a, live, *tail, CFG, r_max)
+                    assert torch.equal(got, plain) and torch.equal(got, again), (
+                        g.dtype, r_max, k, cnt)
+                    assert not got[cnt:].any()
+                    inside = live & (radii[:k] <= r_max)
+                    assert torch.equal(got[inside], k5[:k][inside])
+            assert int((radii > r_max).sum()) >= 4
+
+
 def test_k8_matches_plain_and_k5(dev):
     from sift_features_tpu_torch.ops.kernels.orientation import (
         bucket_radii_ori, orientation_hist_peaks, orientation_hist_perkey)

@@ -97,3 +97,18 @@ def test_unported_paths_raise(one_torch_thread):
         assert octs[0].dtype == dogs[0].dtype == torch.float32
         sp = extractor.extract_with_precomputed(octs, dogs, cfg, device="cpu")
         assert all(torch.equal(sp[k], sp32[k]) for k in sp32), fields
+
+
+@pytest.mark.parametrize("probe,kernel_file", [("k5_const_math", "orientation.cu")])
+def test_probe_sources_follow_kernels(probe, kernel_file):
+    """A probe built from a copy of a kernel's source finds there, once, each
+    run of lines it replaces (it raises otherwise), and the copy differs
+    from the kernel's source only by those lines: a kernel edited so that a
+    probe no longer fits fails here, without a card."""
+    import probes
+
+    src = (ROOT / "sift_features_tpu_torch" / "csrc" / kernel_file).read_text()
+    copy = getattr(probes, f"_{probe}_source")()
+    assert copy != src
+    kept = set(src.split("\n")) & set(copy.split("\n"))
+    assert len(kept) > 0.9 * len(set(src.split("\n")))
