@@ -26,7 +26,9 @@ Phases (any failure stops the script with a non-zero exit):
      the window kernels K5 and K8 (its three bucket launches on K5's
      lanes) also print their device time (device_ms: the wrapper's calls
      captured in a CUDA graph, one replay timed), which below ~0.1 ms the
-     events around the wrapper cannot give;
+     events around the wrapper cannot give; K3 also prints a probe line,
+     not gated: its time with every lane dead and with the walk cut to one
+     and to two Newton steps;
   4. main path: extract_batch on the B=4 1080p batch, then per-frame top-1024
      by response and cross-check matching of frame i against frame i+1 (the
      step bench.py times), with launch counts reset just before and read
@@ -67,11 +69,20 @@ Phases (any failure stops the script with a non-zero exit):
       (K8, K7 on bf16) equal to the bf16 step; the gather16 budget (K6′ on
       bf16) equal to the truncated gather16 output; card against CPU on the
       small image in each mode;
-  12. K5's probe lines, not gated: K5 with every lane dead and with its
+  12. service: the descriptor-database service (service.DescriptorIndex)
+      at 256 1080p frames, each its own seeded texture, added by 64
+      add_frames calls at B=4 (the main path's kernels launched); a new
+      frame's query against all ~2.2M rows (median of 3, distances/s, peak
+      memory, not gated); gated: the self-queries of frames 0 (through
+      query_image, whose keypoints and descriptors equal extract's), 127
+      and 255 match only rows of their frame at distance 0, the chunked
+      matcher equals its one-chunk form on the first 8 frames, save / load
+      round-trips byte-equal;
+  13. K5's probe lines, not gated: K5 with every lane dead and with its
       per-sample math replaced by constants (probes/: a copy of its
       kernel), by CUDA events around the wrapper and by device time (the
       calls replayed from a CUDA graph);
-  13. one JSON line with every kernel's numbers.
+  14. one JSON line with every kernel's numbers.
 The last line is {"ok": true, "device": {...}}.
 
 It needs one CUDA card and nvcc; without a card it exits with code 2 and
@@ -96,6 +107,10 @@ H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 # --fmad=false, so each f32 multiply or add takes a whole FMA issue slot.
 # The operation counts below are such instructions.
 H100_F32_INSTR_PER_S = 33.5e12
+# the values of a candidate's 3 x 3 x 3 cube that a Newton step reads: the
+# centre, the 6 faces and the 12 edges (ops/extrema.py:newton_from_cubes;
+# the 8 corners are unused), what a refine kernel's bound counts a step
+CUBE_VALUES = 19
 # the extractor's names of the kernel wrappers of the main path
 WRAPPERS = {"K1": "octave_fused", "K2": "extrema_words", "K3": "refine_walk",
             "K5": "orientation_hist_peaks", "K6": "descriptor_hist"}
@@ -248,8 +263,8 @@ def window_union_px(torch, plane, y, x, scale, live, factor, r_max, h, w):
 def step_bytes(k: int, n_act: int, cube: int, lane: int) -> int:
     """Bytes that one masked Newton step (K4, K10) needs: every lane's mask
     or index (`lane` bytes: K4's bool mask 1, K10's int32 index 4) and row
-    (64 B), and each active lane's position (12 B) and cube (27 values,
-    `cube` bytes in all)."""
+    (64 B), and each active lane's position (12 B) and the CUBE_VALUES
+    values of its cube that the step reads (`cube` bytes in all)."""
     return k * (lane + 16 * 4) + n_act * (3 * 4 + cube)
 
 
@@ -365,9 +380,11 @@ def device_ms(torch, fn, reps: int = 10) -> float:
 
 def refine_calls(torch, cap, cfg) -> dict:
     """One call of each refine wrapper, K3, K4, K4:bf16, K10 and K11, at
-    K3's octave-0 candidates: K4 with the refine loop's own types (int32
-    positions, bool mask), K4:bf16 the same on a bf16 copy of the DoG, the
-    others with their inputs cast to int32 first. Uses only wrapper names
+    K3's octave-0 candidates: K3 and K4 with the types their callers give
+    them (int32 positions, bool mask: an older checkout's K3 wrapper casts
+    the mask on the card, as it did on the main path), K4:bf16 the same on
+    a bf16 copy of the DoG, the others with their inputs cast to int32
+    first. Uses only wrapper names
     the port has had since the kernels were ported, so kernel_ab.py can
     time an older checkout with it."""
     from sift_features_tpu_torch.ops.kernels import refine as kr
@@ -381,7 +398,7 @@ def refine_calls(torch, cap, cfg) -> dict:
     dog16 = dog_flat.to(torch.bfloat16)
     g = kr.region_order(p, y0, x0, valid, *dog_flat.shape)
     lay = kr.tile_layout(dog_flat, s0, y0, x0, valid, pad, cfg, poff)
-    return {"K3": lambda: kr.refine_walk(dog_flat, s0, y0, x0, valid, pad, h, w,
+    return {"K3": lambda: kr.refine_walk(dog_flat, s0, y0, x0, mask, pad, h, w,
                                          cfg, plane_off=poff),
             "K4": lambda: kr.refine_step(dog_flat, p, y0, x0, mask, cfg),
             "K4:bf16": lambda: kr.refine_step(dog16, p, y0, x0, mask, cfg),
@@ -535,6 +552,27 @@ def k5_probe_lines(torch, k5, args, kw, ms):
         f"{k} {ev[k]:.4f} / {dv[k]:.4f}" for k in runs), flush=True)
 
 
+def k3_probe_line(torch, kr, args, kw, cfg, ms):
+    """Prints (not gated) K3 at its octave-0 inputs with every lane dead
+    (the launch, the mask and position reads, the row stores: what no walk
+    costs) and with the walk cut to one and to two Newton steps, beside the
+    full walk; each by CUDA events around the wrapper, as the kernel lines
+    time, and as device time (device_ms)."""
+    import dataclasses
+
+    dead = torch.zeros_like(args[4])
+    cut = {n: dataclasses.replace(cfg, max_interpolation_steps=n) for n in (1, 2)}
+    runs = {"full K3": lambda: kr.refine_walk(*args, **kw),
+            f"all {dead.numel()} lanes dead":
+                lambda: kr.refine_walk(*args[:4], dead, *args[5:], **kw),
+            "one Newton step": lambda: kr.refine_walk(*args[:8], cut[1], **kw),
+            "two Newton steps": lambda: kr.refine_walk(*args[:8], cut[2], **kw)}
+    ev = {k: ms if k == "full K3" else time_ms(torch, fn, 10) for k, fn in runs.items()}
+    dv = {k: device_ms(torch, fn) for k, fn in runs.items()}
+    print("[probe] K3 split, ms/launch (events / device): " + "; ".join(
+        f"{k} {ev[k]:.4f} / {dv[k]:.4f}" for k in runs), flush=True)
+
+
 def check_kernels(torch, cap, cfg, dev):
     """Phase 3: every kernel against its plain version at octave 0."""
     from sift_features_tpu_torch.ops.extrema import newton_step, refine
@@ -594,14 +632,16 @@ def check_kernels(torch, cap, cfg, dev):
     plain = refine(*args, **kw)
     active = refine_steps_active(torch, full, cfg)
     k = s0.numel()
-    # every lane's s0, y0, x0, valid and row, each live lane's plane offset,
-    # each step's cubes
-    k3_bytes = k * (4 * 4 + 16 * 4) + 4 * active[0] + 27 * 4 * sum(active)
+    # every lane's mask byte, start position and row, each live lane's plane
+    # offset, each step's cubes
+    k3_bytes = (k * (1 + 3 * 4 + 16 * 4) + 4 * active[0]
+                + CUBE_VALUES * 4 * sum(active))
     ms = time_ms(torch, lambda: k34.refine_walk(*args, **kw), 10)
     plain_ms = time_ms(torch, lambda: refine(*args, **kw), 2)
     record("K3", [outs[0]], [outs[1]], [plain], True, 0.0, ms, plain_ms,
            k3_bytes, 150 * sum(active),
            note=f"; active lanes per step {active} of {k}", dev_ms=refine_dev["K3"])
+    k3_probe_line(torch, k34, args, kw, cfg, ms)
     # K4 as the refine loop calls it: int32 positions, a bool mask
     p = torch.clamp(s0, 1, cfg.scales_per_octave).int() + poff.int()
     k4_args = (dog_flat, p, y0.int(), x0.int(), valid.bool(), cfg)
@@ -611,7 +651,7 @@ def check_kernels(torch, cap, cfg, dev):
     plain_ms = time_ms(torch, lambda: newton_step(*k4_args), 2)
     record("K4", [nan_safe(torch, outs[0])], [nan_safe(torch, outs[1])],
            [nan_safe(torch, plain)], True, 0.0, ms, plain_ms,
-           step_bytes(k, active[0], 27 * 4, 1), 150 * active[0],
+           step_bytes(k, active[0], CUBE_VALUES * 4, 1), 150 * active[0],
            note=f" (first step of the same candidates); K4:bf16 on a bf16 copy "
                 f"of the DoG: device {refine_dev['K4:bf16']}", dev_ms=refine_dev["K4"])
     del outs, plain
@@ -821,7 +861,7 @@ def check_mode_kernels(torch, cap, cfg, record, rows, refine_dev, window_dev):
     n_runs = int((keys[1:] != keys[:-1]).sum()) + 1 if n_act else 0
     record("K10", [nan_safe(torch, outs[0])], [nan_safe(torch, outs[1])],
            [nan_safe(torch, plain)], True, 0.0, ms, plain_ms,
-           step_bytes(k, active[0], 27 * 4, 4), 150 * active[0],
+           step_bytes(k, active[0], CUBE_VALUES * 4, 4), 150 * active[0],
            note=f"; equal to K4 bit for bit; {n_runs} region runs for {n_act} "
                 f"active lanes; with the region sort {wrapper_ms:.4f} ms",
            dev_ms=refine_dev["K10"])
@@ -851,7 +891,7 @@ def check_mode_kernels(torch, cap, cfg, record, rows, refine_dev, window_dev):
     # (s, y, x); each walk's cube per step
     k11_bytes = (lay.T_cap * 16 * 4 + lay.nb * 4
                  + n_blocks * (kr.TILE_BK * 4 + 3 * 4) + n_live * 3 * 4
-                 + 27 * 4 * sum(walks))
+                 + CUBE_VALUES * 4 * sum(walks))
     record("K11", [outs[0]], [outs[1]], [plain], True, 0.0, ms, plain_ms,
            k11_bytes, 150 * sum(walks),
            note=f"; merged rows equal K3's; {n_esc} escaped walks of "
@@ -1376,7 +1416,8 @@ def check_storage_kernels(torch, extractor, frames, cfgs, cfg, dev, rows):
     plain_ms = time_ms(torch, lambda: newton_step(*args), 2)
     record("K4:bf16", [nan_safe(torch, outs[0])], [nan_safe(torch, outs[1])],
            [nan_safe(torch, plain)], True, 0.0, ms, plain_ms,
-           step_bytes(p.numel(), n_act, 27 * 2, active.element_size()), 150 * n_act,
+           step_bytes(p.numel(), n_act, CUBE_VALUES * 2, active.element_size()),
+           150 * n_act,
            note=f" (first Newton step of the bf16 step at octave 0: {n_act} "
                 f"active of {p.numel()} lanes); equal to K10 on the widened "
                 f"DoG bit for bit", dev_ms=dev_ms)
@@ -1662,6 +1703,159 @@ def storage_phase(torch, extractor, match_dense, frames, res_full, cfg, dev,
     return out
 
 
+SERVICE_FRAMES = 256
+
+
+def service_frames(start: int, n: int, h: int = H, w: int = W) -> np.ndarray:
+    """Frames start .. start + n - 1 of the service phase, each its own
+    texture: bench.py's recipe with RandomState(f) for frame f (frame 0 is
+    the main path's frame 0), so rows differ across frames."""
+    out = []
+    for f in range(start, start + n):
+        base = (np.random.RandomState(f).rand(600, 800) * 255).astype(np.uint8)
+        out.append(np.tile(base, (-(-h // 600), -(-w // 800)))[:h, :w])
+    return np.stack(out)
+
+
+def self_match_check(db, f: int, desc, r, what: str) -> int:
+    """A query of frame f's own descriptors `desc`: every retained match
+    lies in frame f at distance 0, and its keypoint index points to a row
+    of frame f byte-equal to the query row (a frame may hold a row twice:
+    its texture repeats). Returns the number of retained matches."""
+    if len(r.query_idx) == 0:
+        raise SystemExit(f"chip_smoke: service: {what} retained no match")
+    if not ((r.frame_id == db.frame_ids[f]).all() and (r.distance == 0).all()):
+        raise SystemExit(f"chip_smoke: service: {what} matched outside frame "
+                         f"{f} or at a distance above 0")
+    rows = db.frame(f)[1][r.keypoint_idx]
+    if not np.array_equal(rows, np.asarray(desc)[r.query_idx]):
+        raise SystemExit(f"chip_smoke: service: {what}: a matched row differs "
+                         f"from its query row")
+    return len(r.query_idx)
+
+
+def service_phase(torch, extractor, dev, smi: str) -> dict:
+    """The descriptor-database service at full width: an index of 256
+    1080p frames built by 64 add_frames calls at the main path's B=4 (the
+    main path's kernels launched), queries of a new frame's descriptors
+    against all of it (median of 3, distances/s, peak memory), the
+    self-queries of frames 0 (through query_image), 127 and 255, the
+    chunked matcher against its one-chunk form on the first 8 frames, and
+    save / load byte-equal."""
+    import tempfile
+
+    from sift_features_tpu_torch.io.database import DescriptorDB
+    from sift_features_tpu_torch.ops import matcher
+    from sift_features_tpu_torch.ops.kernels import build
+    from sift_features_tpu_torch.service import DescriptorIndex
+
+    t_phase = time.perf_counter()
+    idx = DescriptorIndex(device=dev)
+    add_ms = []
+    for i in range(SERVICE_FRAMES // B):
+        batch = service_frames(B * i, B)
+        torch.cuda.synchronize()
+        if i == 0:
+            build.reset_launches()
+        t0 = time.perf_counter()
+        idx.add_frames(batch)
+        add_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            launches = dict(build.LAUNCHES)
+            missing = [k for k in WRAPPERS if not launches.get(k)]
+            if missing:
+                raise SystemExit(f"chip_smoke: service: add_frames launched no "
+                                 f"{missing}: {launches}")
+    db = idx.db
+    n_rows = int(db.offsets[-1])
+    db_bytes = db.descriptors.nbytes + db.keypoints.nbytes + db.offsets.nbytes \
+        + db.frame_ids.nbytes
+    if len(db.frame_ids) != SERVICE_FRAMES or np.diff(db.offsets).min() < N_MATCH:
+        raise SystemExit(f"chip_smoke: service: {len(db.frame_ids)} frames, "
+                         f"rows per frame {np.diff(db.offsets).tolist()}")
+
+    # a new frame's descriptors against the whole index
+    _, desc_new = extractor.extract(service_frames(SERVICE_FRAMES, 1)[0], device=dev)
+    idx.query(desc_new[:8])        # descriptors to the card, cached
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    q_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        r_new = idx.query(desc_new)
+        q_ms.append((time.perf_counter() - t0) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    q_med = statistics.median(q_ms)
+    if not len(r_new.query_idx) or not np.isfinite(r_new.distance).all():
+        raise SystemExit("chip_smoke: service: the new frame's query failed")
+
+    # self-queries: frame 0 through query_image, frames 127 and 255
+    kps0, desc0, r0 = idx.query_image(service_frames(0, 1)[0])
+    k_ref, d_ref = extractor.extract(service_frames(0, 1)[0], device=dev)
+    if not (np.array_equal(kps0, k_ref) and np.array_equal(desc0, d_ref)):
+        raise SystemExit("chip_smoke: service: query_image's keypoints or "
+                         "descriptors differ from extract's")
+    kept = {0: self_match_check(db, 0, desc0, r0, "query_image of frame 0")}
+    for f in (SERVICE_FRAMES // 2 - 1, SERVICE_FRAMES - 1):
+        desc_f = db.frame(f)[1]
+        kept[f] = self_match_check(db, f, desc_f, idx.query(desc_f),
+                                   f"the query of frame {f}")
+
+    # the chunked matcher against its one-chunk form, frame 0 against the
+    # first 8 frames (small enough for one chunk)
+    train8 = torch.as_tensor(db.descriptors[:db.offsets[8]], device=dev).float()
+    q0 = torch.as_tensor(db.frame(0)[1], device=dev).float()
+    chunked = matcher.match_dense(train8, q0)
+    n_chunks = -(-train8.shape[0] // max(1, matcher.TEMP_BYTES // (8 * q0.shape[0])))
+    saved_bytes = matcher.TEMP_BYTES
+    matcher.TEMP_BYTES = 8 * q0.shape[0] * train8.shape[0]
+    try:
+        whole = matcher.match_dense(train8, q0)
+    finally:
+        matcher.TEMP_BYTES = saved_bytes
+    if n_chunks < 2 or not all(torch.equal(a, b) for a, b in zip(chunked, whole)):
+        raise SystemExit(f"chip_smoke: service: the chunked matcher ({n_chunks} "
+                         f"chunks) differs from its one-chunk form")
+    del train8, q0, chunked, whole
+
+    # save and load
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        idx.save(tmp, n_shards=4)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = DescriptorIndex.load(tmp, device=dev)
+        load_s = time.perf_counter() - t0
+        for f in ("frame_ids", "offsets", "keypoints", "descriptors"):
+            a, b = getattr(back.db, f), getattr(db, f)
+            if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+                raise SystemExit(f"chip_smoke: service: save / load changed {f}")
+    out = {"frames": SERVICE_FRAMES, "add_frames_calls": len(add_ms),
+           "add_frames_median_ms": statistics.median(add_ms),
+           "add_frames_ms": add_ms, "rows": n_rows, "db_bytes": db_bytes,
+           "query_rows": int(len(desc_new)), "query_ms": q_ms,
+           "query_median_ms": q_med,
+           "distances_per_s": len(desc_new) * n_rows / (q_med / 1e3),
+           "query_peak_mem_gb": peak_gb, "mem_before_query_gb": base_gb,
+           "new_frame_matches_kept": int(len(r_new.query_idx)),
+           "self_matches_kept": kept, "chunks_on_8_frames": n_chunks,
+           "save_s": save_s, "load_s": load_s,
+           "launches_in_first_add_frames": launches,
+           "phase_s": time.perf_counter() - t_phase, "card": smi}
+    print(f"[service] {SERVICE_FRAMES} frames in {len(add_ms)} add_frames calls "
+          f"of B={B}: median {out['add_frames_median_ms']:.1f} ms a call; {n_rows} "
+          f"rows, {db_bytes / 1e6:.1f} MB; query of {len(desc_new)} rows: median "
+          f"{q_med:.1f} ms of 3 ({out['distances_per_s']:.3e} distances/s), peak "
+          f"{peak_gb:.3f} GB ({base_gb:.3f} before); self-queries of frames "
+          f"{list(kept)} (0 by query_image) kept {list(kept.values())} matches, all in "
+          f"their frame at distance 0; chunked matcher equal to one chunk on 8 "
+          f"frames ({n_chunks} chunks); save {save_s:.1f} s, load {load_s:.1f} s "
+          f"byte-equal; {smi}", flush=True)
+    print(json.dumps({"service": out}), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1850,7 +2044,11 @@ def main() -> int:
     del res_full
     torch.cuda.empty_cache()
 
-    # 12. K5's probe lines
+    # 12. the descriptor-database service at 256 frames
+    service_phase(torch, extractor, dev, smi)
+    torch.cuda.empty_cache()
+
+    # 13. K5's probe lines
     from sift_features_tpu_torch.ops.kernels import orientation as k5
 
     cap5 = capture_first_calls(torch, {"K5": (EXTRACTOR, "orientation_hist_peaks")},
@@ -1858,7 +2056,7 @@ def main() -> int:
     k5_probe_lines(torch, k5, *cap5["K5"], rows["K5"]["ms"])
     del cap5
 
-    # 13. the kernels line
+    # 14. the kernels line
     paths = {"K4": ("refine_mode=step, 240x320", step_launches),
              "K6′": (f"budget, features_limit={BUDGET}", budget_row["launches"]),
              "K10": ("refine_mode=region main step", modes["region"]["launches"]),

@@ -16,7 +16,9 @@ step's octave-0 lanes and bf16 on the bf16 step's; then phase 4's
 per-kernel device time inside one main step (CUDA events around each
 wrapper call), the matcher's `match_ms` on that step's descriptors (phase
 4's measure: CUDA events around the B cross-check matches, here over 20
-repetitions), the median of 10 main steps (host clock around each, ending
+repetitions, host-bound) and their device time (`device_ms` of the
+chip_smoke.py beside this script: the B matches replayed from a CUDA
+graph), the median of 10 main steps (host clock around each, ending
 in a synchronize), the peak memory of each stage of `extract_batch` in the
 default and the storage modes and, last (a profiler session slows every
 later launch in its process), two torch.profiler sessions: each refine
@@ -134,6 +136,8 @@ def one(tree: str) -> dict:
     n = d.shape[0]
     match_ms = cs.time_ms(torch, lambda: [match_dense(d[(i + 1) % n], d[i])
                                           for i in range(n)], 20, 3)
+    match_device_ms = cs_here.device_ms(
+        torch, lambda: [match_dense(d[(i + 1) % n], d[i]) for i in range(n)])
     step_ms = []
     for _ in range(10):
         t0 = time.perf_counter()
@@ -156,7 +160,8 @@ def one(tree: str) -> dict:
             "kernels_in_steps": in_steps,
             "kernel_ms_in_step": in_step,
             "launches_in_step": {k: len(v) for k, v in events.items()},
-            "match_ms": match_ms, "step_ms": step_ms,
+            "match_ms": match_ms, "match_device_ms": match_device_ms,
+            "step_ms": step_ms,
             "stage_peak_gb": stage_peaks}
 
 
@@ -218,6 +223,8 @@ def main(argv) -> int:
         print(f"[kernel_ab] in one main step: {k} {ms} ms")
     print("[kernel_ab] match_ms: " + " / ".join(
         f"{r['match_ms']:.4f}" for r in runs))
+    print("[kernel_ab] match device ms (the B matches replayed from a CUDA "
+          "graph): " + " / ".join(f"{r['match_device_ms']:.4f}" for r in runs))
     print("[kernel_ab] main step median ms: " + " / ".join(
         f"{statistics.median(r['step_ms']):.1f}" for r in runs))
     for r in runs:

@@ -14,6 +14,10 @@ theirs is counted. Each is compiled with the package's nvcc flags into
   ordered adds, and its outputs mean nothing. It is built from a copy of
   K5's source with two blocks of lines replaced, and raises if K5's source
   no longer holds them as written here.
+
+K3's probe line (`chip_smoke.py:k3_probe_line`) needs no copy of a
+kernel: it times K3's own wrapper with every lane dead and with the walk
+cut to one and to two Newton steps.
 """
 
 from __future__ import annotations

@@ -12,6 +12,7 @@ Entry points run on the card unless the caller asks for the CPU
 
     sift(img, device="cuda")                  -> (kps (N, 5) f32, desc (N, 128) u8)
     match_descriptors(d1, d2, cross_check=True, device="cuda")
+    descriptor_index(db=None, device="cuda")  -> service.DescriptorIndex
     SiftConfig                                the frozen parameter spec
 """
 
@@ -34,3 +35,11 @@ def match_descriptors(d1, d2, cross_check=True, device="cuda"):
     from .ops.matcher import match_brute_force
 
     return match_brute_force(d1, d2, cross_check=cross_check, device=device)
+
+
+def descriptor_index(db=None, *, device="cuda"):
+    """Queryable descriptor-database service (extract -> index -> query);
+    see sift_features_tpu_torch.service.DescriptorIndex."""
+    from .service import DescriptorIndex
+
+    return DescriptorIndex(db, device=device)

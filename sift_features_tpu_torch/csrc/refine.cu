@@ -23,16 +23,17 @@
 // with four 16-byte stores (`store_row`): as 16 scalar stores, each store
 // instruction of a warp touched 32 rows 64 bytes apart, and the vector
 // stores halved K3's device time (0.031 -> 0.016 ms per 1080p B=4 octave-0
-// launch, NVIDIA H100 80GB HBM3, 700 W). K4, whose rows are consecutive
-// lanes, stages a warp's rows and writes them 512 contiguous bytes a store
-// (`store_rows_warp`).
+// launch, NVIDIA H100 80GB HBM3, 700 W). K4 stages a warp's rows and writes
+// them 512 contiguous bytes a store (`store_rows_warp`).
 //
 // Bound on the H100: the bytes, each read and written once. A candidate
-// reads its cube (108 B) per step and its inputs, and writes a 64-byte
-// row; ~150 flops a step. A 1080p B=4 octave 0 has at most 131072
-// candidate lanes. Reading from global memory has no window limit, so
-// unlike the TPU walk kernel (whose region windows let ~1.4% of walks
-// escape to K4) K3 never escapes: column 9 of its rows is always 0.
+// reads, per step, the 19 values of its cube that a Newton step uses (the
+// centre, the 6 faces and the 12 edges: 76 B; the 8 corners are unused) and
+// its inputs, and writes a 64-byte row; ~150 flops a step. A 1080p B=4
+// octave 0 has at most 131072 candidate lanes. Reading from global memory
+// has no window limit, so unlike the TPU walk kernel (whose region windows
+// let ~1.4% of walks escape to K4) K3 never escapes: column 9 of its rows
+// is always 0.
 //
 // A bf16 DoG (storage_dtype "bfloat16") goes to K4 alone, as the JAX
 // dispatch sends a non-f32 stack to the step loop in every refine_mode
@@ -182,7 +183,8 @@ __device__ __forceinline__ void store_rows_warp(float* __restrict__ out, int k, 
 // octave 0 (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
 //
 // Bound on the H100: the bytes. Every lane's mask byte and row (65 B) and
-// each active lane's position (12 B) and cube (108 B f32, 54 B bf16).
+// each active lane's position (12 B) and the 19 cube values it reads (76 B
+// f32, 38 B bf16).
 template <typename T>
 __global__ void __launch_bounds__(128) refine_step_kernel(
     const T* __restrict__ dog, int n_planes, int Hp, int Wp, const int* __restrict__ p,
@@ -255,22 +257,37 @@ __device__ __forceinline__ void newton_walk(const float* __restrict__ dog,
 // K3: rows (K, 16) of `newton_walk` from (s0, y0, x0), live where valid;
 // positions are padded coordinates, the DoG plane clamp(s, 1, n_scales) +
 // plane_off[k] kept in [1, n_planes-2] and the position in the stack's
-// interior, so the walk never escapes.
-__global__ void refine_walk_kernel(const float* __restrict__ dog, int n_planes,
-                                   int Hp, int Wp, const int* __restrict__ s0,
-                                   const int* __restrict__ y0,
-                                   const int* __restrict__ x0,
-                                   const int* __restrict__ valid,
-                                   const int* __restrict__ plane_off,
-                                   float* __restrict__ out, int K, int pad, int h,
-                                   int w, int border, int n_scales, int max_steps,
-                                   NewtonParams prm) {
-  int k = blockIdx.x * blockDim.x + threadIdx.x;
+// interior, so the walk never escapes. valid is one byte a lane (the
+// extractor's bool mask, passed as it is: no cast kernel). A dead lane reads
+// its mask byte and its start position, writes (0, s0, y0, x0, 0, ...) and
+// reads no plane offset and no cube. One thread per lane over ceil(K / 128)
+// blocks, each row written with `store_row`.
+//
+// Bound on the H100: the bytes. Every lane's mask byte, start position and
+// row (77 B), each live lane's plane offset (4 B) and, each step, the 19
+// cube values a Newton step reads (76 B an active lane). What sets its time
+// is the walk (NVIDIA H100 80GB HBM3, 700 W, 1080p B=4 octave 0; PERF.md):
+// with every lane dead it takes ~30% of the full time, the first step's
+// cubes, scattered over the DoG in 32-byte sectors, ~40%, the four later
+// dependent steps ~30%; the compiled code has a step's 19 loads in flight
+// before their first use. Tried and dropped: writing a warp's rows through shared memory
+// in 512-byte stores (`store_rows_warp`, 5% slower alone, faster only with
+// every lane dead), every lane reading its plane offset (no faster), a
+// warp fetching its lanes' cubes together, 27 lanes on one cube per
+// cp.async (1.7x slower).
+__global__ void __launch_bounds__(128) refine_walk_kernel(
+    const float* __restrict__ dog, int n_planes, int Hp, int Wp,
+    const int* __restrict__ s0, const int* __restrict__ y0, const int* __restrict__ x0,
+    const unsigned char* __restrict__ valid, const int* __restrict__ plane_off,
+    float* __restrict__ out, int K, int pad, int h, int w, int border, int n_scales,
+    int max_steps, NewtonParams prm) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= K) return;
-  const WalkBox box{plane_off[k], 1, n_planes - 2, 1, Hp - 2, 1, Wp - 2};
+  const bool live = valid[k] != 0;
+  const WalkBox box{live ? plane_off[k] : 0, 1, n_planes - 2, 1, Hp - 2, 1, Wp - 2};
   float vals[16];
-  newton_walk(dog, (long long)Hp * Wp, Wp, s0[k], y0[k], x0[k], valid[k] != 0, box,
-              pad, h, w, border, n_scales, max_steps, prm, vals);
+  newton_walk(dog, (long long)Hp * Wp, Wp, s0[k], y0[k], x0[k], live, box, pad, h, w,
+              border, n_scales, max_steps, prm, vals);
   store_row(out + (long long)k * 16, vals);
 }
 
@@ -293,9 +310,11 @@ SIFT_EXPORT int sift_refine_step(const void* dog, int dog_t, int n_planes, int H
   return (int)cudaGetLastError();
 }
 
+// s0/y0/x0/plane_off (K,) int32; valid (K,) bool (one byte).
 SIFT_EXPORT int sift_refine_walk(const float* dog, int n_planes, int Hp, int Wp,
                                  const int* s0, const int* y0, const int* x0,
-                                 const int* valid, const int* plane_off, float* out,
+                                 const unsigned char* valid, const int* plane_off,
+                                 float* out,
                                  int K, int pad, int h, int w, int border,
                                  int n_scales, int max_steps,
                                  float contrast_threshold, float edge_threshold,
@@ -337,7 +356,8 @@ SIFT_EXPORT int sift_refine_walk(const float* dog, int n_planes, int Hp, int Wp,
 // border, at least PAD_DESC = 56 rows above the bottom of the stack).
 //
 // Bound on the H100: the bytes, as K4's: each lane's index and row
-// (K x 68 B), and each active lane's clamped position and cube (120 B).
+// (K x 68 B), and each active lane's clamped position and 19 cube values
+// (88 B).
 __global__ void __launch_bounds__(128) refine_region_kernel(
     const float* __restrict__ dog, int Hp, int Wp, const int* __restrict__ sp,
     const int* __restrict__ yp, const int* __restrict__ xp,
@@ -403,8 +423,8 @@ SIFT_EXPORT int sift_refine_region(const float* dog, int Hp, int Wp, const int* 
 // Bound on the H100: the bytes. Every slot's row, T_cap x 64 B, and every
 // block's active count, nb x 4 B; each active block's slot flags and window
 // origin, bk x 4 + 12 B; each live slot's (s, y, x), 12 B; and the walks'
-// cubes, 108 B a step. The rows of the empty slots (~94% of T_cap at 1080p)
-// are most of it.
+// 19 cube values, 76 B a step. The rows of the empty slots (~94% of T_cap
+// at 1080p) are most of it.
 __global__ void __launch_bounds__(128) refine_tile_kernel(
     const float* __restrict__ dog, int Hp, int Wp, const int* __restrict__ s_slot,
     const int* __restrict__ y_slot, const int* __restrict__ x_slot,

@@ -105,15 +105,18 @@ def refine_walk(dog_flat: torch.Tensor, s0, y0, x0, valid, pad: int, h: int,
     """K3 wrapper: the whole refinement loop. The plain version
     (ops/extrema.py:refine) for a CPU tensor; the CUDA kernel for a CUDA
     tensor (or an error). Positions are padded coordinates; plane_off (K,)
-    is the per-candidate DoG plane offset (frame * planes)."""
+    is the per-candidate DoG plane offset (frame * planes). The kernel reads
+    the mask as one byte a lane, so the extractor's int32 positions and bool
+    mask pass as they are and the call launches that kernel alone; another
+    mask is converted with .bool(), as the plain version reads it."""
     _require_f32("refine_walk", dog_flat)
     if dog_flat.device.type == "cpu":
         return refine(dog_flat, s0, y0, x0, valid, pad, h, w, cfg, plane_off)
     k = s0.shape[0]
     if plane_off is None:
         plane_off = torch.zeros(k, dtype=torch.int32, device=dog_flat.device)
-    s0, y0, x0, valid, plane_off = (_i32(s0), _i32(y0), _i32(x0), _i32(valid),
-                                    _i32(plane_off))
+    s0, y0, x0, plane_off = _i32(s0), _i32(y0), _i32(x0), _i32(plane_off)
+    valid = (valid if valid.dtype == torch.bool else valid.bool()).contiguous()
     build.require_cuda("refine_walk", dog_flat, s0, y0, x0, valid, plane_off)
     n_planes, hp, wp = dog_flat.shape
     out = torch.empty((k, ROW_COLS), dtype=torch.float32, device=dog_flat.device)

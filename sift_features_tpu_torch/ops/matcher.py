@@ -2,9 +2,10 @@
 
 Counterpart of sift_features_tpu/ops/matcher.py (`_match_jit`, f32 path, and
 `match_brute_force`): BFMatcher(NORM_L2, crossCheck=True) semantics, with
-||a - b||^2 = ||a||^2 + ||b||^2 - 2 a.b. The distance product is one
-`torch.matmul` (the JAX package leaves it to XLA, not to a kernel of its
-own). Ties resolve to the lowest index, as `torch.argmin` does.
+||a - b||^2 = ||a||^2 + ||b||^2 - 2 a.b. The distance product is
+`torch.matmul`, one per chunk of train rows (the JAX package leaves it to
+XLA, not to a kernel of its own). Ties resolve to the lowest index, as
+`torch.argmin` does.
 
 The distances run in float64 and are rounded once to f32. No TF32
 setting touches a float64 product, so the result is the same whatever the
@@ -15,6 +16,19 @@ from several threads. On u8 descriptors (what the extractor emits) every
 product and partial sum is an integer below 2^24 (128 x 255^2 =
 8,323,200), exact in float64 as in f32; on f32 input each product of two
 values is exact in float64 and only the sums round.
+
+The train rows go in chunks (`TEMP_BYTES`), so that a query against a
+database of millions of rows (`service.DescriptorIndex`) holds a few (Q,
+chunk) temporaries, never the whole (Q, T) matrix: a one-frame 1080p query
+(~8.7k rows) against 256 frames (~2.2M rows) would need ~155 GB for the
+f64 distances alone. Each chunk's per-train argmin over all queries is
+exact on its own. The per-query best runs across the chunks in ascending
+order and moves only on a strictly smaller f32 distance, so ties still go
+to the lowest global index (jnp.argmin's rule), and the result equals the
+one-chunk form's bit for bit wherever a chunk's distances are those of the
+whole matrix: always on u8 descriptors, whose sums are exact in any order.
+JAX's ring matcher (`parallel/ring.py`) streams database shards with
+running minima by the same rule.
 """
 
 from __future__ import annotations
@@ -27,6 +41,12 @@ import torch
 from ..utils.device import resolve_device
 from .util import sqrt_f32
 
+# Bytes of one (Q, chunk) float64 temporary of the distance matrix: the
+# train rows go in chunks of max(1, TEMP_BYTES // (8 Q)) rows, with two such
+# temporaries and their f32 rounding alive at a time (~1.25 GiB). A
+# 1024-row query (the main step's) takes up to 65,536 train rows at once.
+TEMP_BYTES = 1 << 29
+
 
 @dataclasses.dataclass
 class Matches:
@@ -37,35 +57,69 @@ class Matches:
     distance: np.ndarray
 
 
+def _chunk_d2(a_rows: torch.Tensor, b: torch.Tensor,
+              bb: torch.Tensor) -> torch.Tensor:
+    """(Q, n) f32 squared distances of the queries b (Q, D) f64, with
+    ||b||^2 = bb, to the train rows a_rows (n, D): bb + aa - 2 a.b in f64,
+    rounded once to f32, clamped at 0. The product is doubled and
+    subtracted in place (the same roundings as the expression), so two f64
+    temporaries are alive, not four."""
+    a = a_rows.to(torch.float64)
+    aa = torch.sum(a * a, dim=1)
+    d2 = bb[:, None] + aa[None, :]
+    ab = b @ a.T
+    d2.sub_(ab.mul_(2.0))
+    del ab
+    return torch.clamp_min(d2.to(torch.float32), 0.0)
+
+
 def match_dense(d_train: torch.Tensor, d_query: torch.Tensor,
                 cross_check: bool = True):
     """(T, D), (Q, D) -> (best_train (Q,) int64, distance (Q,) f32, keep (Q,)
-    bool); keep marks mutual nearest neighbours when cross_check."""
-    a = d_train.to(torch.float64)
+    bool); keep marks mutual nearest neighbours when cross_check. The train
+    rows go in chunks of `TEMP_BYTES` (module note)."""
+    n_q, n_t = d_query.shape[0], d_train.shape[0]
+    rows = max(1, TEMP_BYTES // (8 * max(n_q, 1)))
     b = d_query.to(torch.float64)
-    aa = torch.sum(a * a, dim=1)
     bb = torch.sum(b * b, dim=1)
-    d2 = (bb[:, None] + aa[None, :] - 2.0 * (b @ a.T)).to(torch.float32)
-    d2 = torch.clamp_min(d2, 0.0)
-    best_train = torch.argmin(d2, dim=1)
-    best_d2 = torch.gather(d2, 1, best_train[:, None])[:, 0]
+    best_query = []
+    for t0 in range(0, max(n_t, 1), rows):
+        d2 = _chunk_d2(d_train if rows >= n_t else d_train[t0:t0 + rows], b, bb)
+        arg = torch.argmin(d2, dim=1)
+        low = torch.gather(d2, 1, arg[:, None])[:, 0]
+        if t0 == 0:
+            best_train, best_d2 = arg, low
+        else:
+            better = low < best_d2
+            best_train = torch.where(better, arg + t0, best_train)
+            best_d2 = torch.where(better, low, best_d2)
+        if cross_check:
+            best_query.append(torch.argmin(d2, dim=0))
+        del d2
     if cross_check:
-        best_query = torch.argmin(d2, dim=0)
-        keep = best_query[best_train] == torch.arange(d2.shape[0],
-                                                      device=d2.device)
+        best_query = (best_query[0] if len(best_query) == 1
+                      else torch.cat(best_query))
+        keep = best_query[best_train] == torch.arange(n_q, device=b.device)
     else:
-        keep = torch.ones(d2.shape[0], dtype=torch.bool, device=d2.device)
+        keep = torch.ones(n_q, dtype=torch.bool, device=b.device)
     return best_train, sqrt_f32(best_d2), keep
+
+
+def _on(x, dev: torch.device) -> torch.Tensor:
+    """x (a tensor on any device, or an array) as a tensor on dev."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    return torch.as_tensor(np.asarray(x), device=dev)
 
 
 def match_brute_force(d_train, d_query, cross_check: bool = True,
                       device: str | torch.device = "cuda") -> Matches:
     """BFMatcher.match(query) analog: d_train was 'add'ed, d_query matched.
-    Arrays are (N, 128) u8 or f32; the match runs on `device`."""
+    Arrays or tensors (on any device) of (N, 128) u8 or f32; the match runs
+    on `device`, where a tensor that is already there is not copied."""
     dev = resolve_device(device)
-    dt = torch.as_tensor(np.asarray(d_train), device=dev)
-    dq = torch.as_tensor(np.asarray(d_query), device=dev)
-    bt, dist, keep = match_dense(dt, dq, cross_check)
+    bt, dist, keep = match_dense(_on(d_train, dev), _on(d_query, dev),
+                                 cross_check)
     bt, dist, keep = bt.cpu().numpy(), dist.cpu().numpy(), keep.cpu().numpy()
     qi = np.nonzero(keep)[0]
     return Matches(query_idx=qi, train_idx=bt[qi], distance=dist[qi])

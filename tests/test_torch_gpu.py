@@ -214,6 +214,35 @@ def test_k3_k4_bit_exact(dev):
     assert int((walk[:, 8] > 0).sum()) > 5
 
 
+def test_k3_edges_bit_exact(dev):
+    """K3 at lane counts that are not multiples of 32 (1, 33 and 300: a
+    last warp cut short), with the extractor's bool mask, an int32 one,
+    every third lane dead and every lane dead: rows bit-equal to the plain
+    refine's, dead lanes (0, s0, y0, x0, 0, ...), two launches identical."""
+    from sift_features_tpu_torch.ops.extrema import refine
+    from sift_features_tpu_torch.ops.kernels.refine import refine_walk
+
+    flat, s0, y0, x0, valid, poff, (h, w) = _candidates(dev, k=150)
+    n = s0.numel()
+    assert n % 32 != 0
+    third = valid & (torch.arange(n, device=dev) % 3 != 0)
+    for mask in (valid, third, torch.zeros_like(valid)):
+        for k in (1, 33, n):
+            a = (flat, s0[:k], y0[:k], x0[:k], mask[:k], P, h, w, CFG)
+            got = refine_walk(*a, plane_off=poff[:k])
+            again = refine_walk(*a, plane_off=poff[:k])
+            as_int = refine_walk(*a[:4], mask[:k].int(), *a[5:], plane_off=poff[:k])
+            torch.cuda.synchronize()
+            for other in (again, as_int, refine(*a, plane_off=poff[:k])):
+                assert torch.equal(got, other), (k, int(mask.sum()))
+            dead = ~mask[:k]
+            assert not got[dead][:, [0, *range(4, 16)]].any()
+            start = torch.stack([s0[:k], y0[:k], x0[:k]], 1)[dead].float()
+            assert torch.equal(got[dead][:, 1:4], start)
+        if mask.any():
+            assert int((got[:, 8] > 0).sum()) > 5
+
+
 def _survivor_windows(dev, n=300):
     """Scattered-liveness lanes over the seed octave's Gaussian levels 1-3
     (the layout K5/K6 read on the main path)."""

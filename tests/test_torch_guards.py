@@ -13,6 +13,7 @@ import torch
 import sift_features_tpu_torch as port
 from sift_features_tpu_torch.config import DEFAULT_CONFIG as CFG
 from sift_features_tpu_torch.models import extractor
+from sift_features_tpu_torch.service import DescriptorIndex
 
 from test_torch_gpu import one_torch_thread, smooth_images  # noqa: F401
 
@@ -49,6 +50,11 @@ def test_entry_points_need_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         port.match_descriptors(np.zeros((4, 128), np.uint8),
                                np.zeros((4, 128), np.uint8))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.descriptor_index()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DescriptorIndex()
+    assert port.descriptor_index(device="cpu").device.type == "cpu"
     kps, desc = port.sift(img, device="cpu")
     assert kps.shape == (0, 5) and desc.shape == (0, 128)
 

@@ -156,6 +156,30 @@ def test_tile_refine_matches_xla_refine(case):
         assert conv.sum() > 20
 
 
+def test_k3_wrapper_takes_bool_or_int_mask():
+    """K3's wrapper takes the extractor's bool mask as it is (the kernel
+    reads one byte a lane) and an int32 mask alike: the same rows, those of
+    the plain refine; dead lanes keep their start positions."""
+    dog, s, y, x, valid = _strided_case()
+    valid = valid & (np.arange(valid.size) % 5 != 0)
+    _, h, w = dog.shape
+    Hp = -(-(h + 2 * P) // 8) * 8
+    Wp = -(-(w + 2 * P) // 128) * 128
+    dog_p = np.zeros((5, Hp, Wp), np.float32)
+    dog_p[:, P:P + h, P:P + w] = dog
+    base = (_t(dog_p), _t(s), _t(y + P), _t(x + P))
+    rows = [tkr.refine_walk(*base, _t(v), P, h, w, CFG)
+            for v in (valid, valid.astype(np.int32))]
+    assert rows[0].dtype == torch.float32
+    assert torch.equal(rows[0], rows[1])
+    assert torch.equal(rows[0], refine(*base, _t(valid), P, h, w, CFG))
+    dead = ~valid
+    assert not rows[0][dead][:, [0, *range(4, 16)]].any()
+    np.testing.assert_array_equal(rows[0][dead][:, 1:4].numpy(),
+                                  np.stack([s, y + P, x + P], 1)[dead])
+    assert int((rows[0][:, 0] > 0).sum()) > 20
+
+
 def test_tile_plain_counts_walks_per_step():
     """refine_tile_plain's per-step counts (chip_smoke.py's K11 bound reads
     them): on strided candidates no walk escapes its window, so the tile
