@@ -78,11 +78,27 @@ Phases (any failure stops the script with a non-zero exit):
       and 255 match only rows of their frame at distance 0, the chunked
       matcher equals its one-chunk form on the first 8 frames, save / load
       round-trips byte-equal;
-  13. K5's probe lines, not gated: K5 with every lane dead and with its
+  13. stream: the I/O tier and the streaming executor. 62 1080p frames
+      (the service phase's textures; 62 is not a multiple of B=4) written
+      as JPEGs (quality 92) by the native encoder; gated: the native decode
+      pool's frames byte-equal to decode_gray's, and stream_extract_paths
+      (depth 2, compact) byte-identical frame for frame to extract_batch
+      on the decoded batches, with and without features_limit=2048,
+      launching the main path's kernels (K6′ and not K6 with the limit);
+      not gated, interleaved twice: frames/s of the decode pool alone, the
+      stream, an extract_batch loop over the decoded frames and a serial
+      decode -> extract loop; one instrumented stream run: the share of its
+      window the card spends inside a batch's work (CUDA events around
+      each extract_batch call), host time in extract_batch and in the
+      readback waits, peak device memory. Without libjpeg's header (an
+      explicit g++ check) it prints "[stream] native tier not built" and
+      streams the frames from memory through four rotating pinned buffers
+      (the pool's contract; compact=False) instead;
+  14. K5's probe lines, not gated: K5 with every lane dead and with its
       per-sample math replaced by constants (probes/: a copy of its
       kernel), by CUDA events around the wrapper and by device time (the
       calls replayed from a CUDA graph);
-  14. one JSON line with every kernel's numbers.
+  15. one JSON line with every kernel's numbers.
 The last line is {"ok": true, "device": {...}}.
 
 It needs one CUDA card and nvcc; without a card it exits with code 2 and
@@ -90,6 +106,7 @@ prints no result.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1856,6 +1873,255 @@ def service_phase(torch, extractor, dev, smi: str) -> dict:
     return out
 
 
+STREAM_FRAMES = 62     # not a multiple of B: the last batch is ragged
+
+
+def jpeg_header() -> tuple[bool, str]:
+    """Whether g++ finds libjpeg's header, which both native sources
+    include; (False, why) when it does not."""
+    try:
+        out = subprocess.run(["g++", "-E", "-x", "c++", "-"],
+                             input="#include <jpeglib.h>\n", text=True,
+                             capture_output=True, timeout=60)
+    except OSError as e:
+        return False, f"g++ did not run: {e}"
+    if out.returncode != 0:
+        return False, "g++ finds no jpeglib.h: " + out.stderr.strip()[-300:]
+    return True, ""
+
+
+class PinnedRotation:
+    """Frames from memory through the decode pool's buffer contract, for a
+    card without the native tier: n rotating pinned buffers, each
+    rewritten only once the event after its last H2D copy has completed
+    (the stream reports it through copy_done)."""
+
+    def __init__(self, torch, frames, batches, n_buffers: int):
+        self.frames, self.batches = frames, batches
+        self.bufs = [torch.empty((B,) + frames.shape[1:], dtype=torch.uint8,
+                                 pin_memory=True).numpy()
+                     for _ in range(n_buffers)]
+        self.events = [None] * n_buffers
+        self.slot = 0
+
+    def copy_done(self, event) -> None:
+        self.events[self.slot] = event
+
+    def __iter__(self):
+        for i, s in enumerate(self.batches):
+            self.slot = i % len(self.bufs)
+            if self.events[self.slot] is not None:
+                self.events[self.slot].synchronize()
+            n = s.stop - s.start
+            self.bufs[self.slot][:n] = self.frames[s]
+            yield self.bufs[self.slot][:n]
+
+
+def frame_pairs(host: dict, compact_batch=None) -> list:
+    """Per-frame (kps, desc) pairs of a padded host result: the native
+    compaction, or NumPy masking where the native tier is not built."""
+    if compact_batch is not None:
+        return compact_batch(host["kps"], host["desc"], host["valid"])
+    return [(host["kps"][f][host["valid"][f]], host["desc"][f][host["valid"][f]])
+            for f in range(host["valid"].shape[0])]
+
+
+def same_pairs(got: list, want: list, what: str) -> int:
+    """Every frame's (kps, desc) byte-identical; returns the keypoints."""
+    if len(got) != len(want):
+        raise SystemExit(f"chip_smoke: stream: {what}: {len(got)} frames, "
+                         f"{len(want)} expected")
+    for f, ((k, d), (wk, wd)) in enumerate(zip(got, want)):
+        if not (k.dtype == wk.dtype and d.dtype == wd.dtype
+                and k.tobytes() == wk.tobytes() and d.tobytes() == wd.tobytes()):
+            raise SystemExit(f"chip_smoke: stream: {what}: frame {f} differs "
+                             f"from extract_batch ({len(k)} / {len(wk)} rows)")
+    return sum(len(k) for k, _ in got)
+
+
+def stream_phase(torch, extractor, cfg, dev, smi: str) -> dict:
+    """The I/O tier and the streaming executor on 62 1080p frames (the
+    service phase's textures) at B=4: JPEGs written with the native
+    encoder (quality 92); the decode pool's frames byte-equal to
+    decode_gray's; stream_extract_paths (depth 2) byte-identical to
+    extract_batch on the decoded batches, with and without features_limit,
+    launching the main path's kernels. Then, not gated, interleaved twice:
+    frames/s of the decode pool alone, of the stream, of an extract_batch
+    loop over the decoded frames and of a serial decode -> extract loop
+    (each loop ends in per-frame pairs, as the stream does); then one
+    instrumented stream run: the share of its window the card spends
+    inside a batch's work (CUDA events around each extract_batch call),
+    the host time in extract_batch and in the readback waits, and peak
+    device memory. Without libjpeg's header the frames stream from memory
+    through rotating pinned buffers (compact=False, PinnedRotation) and the
+    JPEG parts are left out."""
+    import tempfile
+
+    from sift_features_tpu_torch.ops.kernels import build
+    from sift_features_tpu_torch.parallel import stream as st
+
+    t_phase = time.perf_counter()
+    frames = service_frames(0, STREAM_FRAMES)
+    native, reason = jpeg_header()
+    out = {"frames": STREAM_FRAMES, "batch": B, "depth": 2,
+           "native_tier": native, "card": smi}
+    if not native:
+        print(f"[stream] native tier not built: {reason}", flush=True)
+        out["native_tier_reason"] = reason
+    batches = [slice(lo, min(lo + B, STREAM_FRAMES))
+               for lo in range(0, STREAM_FRAMES, B)]
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [f"{tmp}/f{i:03d}.jpg" for i in range(STREAM_FRAMES)]
+        compact_batch = None
+        if native:
+            from sift_features_tpu_torch.io.native_loader import (BatchLoader,
+                                                                  decode_gray)
+            from sift_features_tpu_torch.io.native_output import (compact_batch,
+                                                                  write_jpeg)
+
+            t0 = time.perf_counter()
+            for p, img in zip(paths, frames):
+                write_jpeg(p, img, quality=92)
+            out["jpeg_write_s"] = time.perf_counter() - t0
+            out["jpeg_mb"] = sum(os.path.getsize(p) for p in paths) / 1e6
+            decoded = np.stack([decode_gray(p) for p in paths])
+            if decoded.shape != frames.shape:
+                raise SystemExit(f"chip_smoke: stream: decoded {decoded.shape}")
+            loader = BatchLoader(paths, B, (H, W), n_threads=4)
+            try:
+                got = np.concatenate([b.copy() for b in loader])
+            finally:
+                loader.close()
+            if got.tobytes() != decoded.tobytes():
+                raise SystemExit("chip_smoke: stream: BatchLoader's frames "
+                                 "differ from decode_gray's")
+        else:
+            decoded = frames
+
+        def run_stream(limit=None):
+            if native:
+                res = st.stream_extract_paths(paths, B, (H, W), cfg, limit,
+                                              depth=2, device=dev)
+                return [p for batch in res for p in batch]
+            rot = PinnedRotation(torch, decoded, batches, n_buffers=4)
+            res = st.stream_extract(rot, cfg, limit, depth=2, compact=False,
+                                    producer_rotates=True, device=dev,
+                                    copy_done=rot.copy_done)
+            return [p for host in res for p in frame_pairs(host)]
+
+        def run_loop(limit=None, serial=False):
+            pairs = []
+            for s in batches:
+                imgs = (np.stack([decode_gray(p) for p in paths[s]]) if serial
+                        else decoded[s])
+                res = extractor.extract_batch(imgs, cfg, limit, device=dev)
+                host = {k: v.cpu().numpy() for k, v in res.items()}
+                pairs += frame_pairs(host, compact_batch)
+            return pairs
+
+        def run_pool():
+            loader = BatchLoader(paths, B, (H, W), n_threads=4)
+            try:
+                return sum(len(b) for b in loader)
+            finally:
+                loader.close()
+
+        # gated: the stream against the extract_batch loop, launches counted
+        # over the stream's run alone; the budget likewise
+        torch.cuda.synchronize()
+        build.reset_launches()
+        streamed = run_stream()
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        missing = [k for k in WRAPPERS if not launches.get(k)]
+        if missing or launches.get("K4"):
+            raise SystemExit(f"chip_smoke: stream: launches {launches}")
+        out["kps_total"] = same_pairs(streamed, run_loop(), "the stream")
+        build.reset_launches()
+        streamed = run_stream(BUDGET)
+        torch.cuda.synchronize()
+        launches_b = dict(build.LAUNCHES)
+        if not launches_b.get("K6′") or launches_b.get("K6"):
+            raise SystemExit(f"chip_smoke: stream: budget launches {launches_b}")
+        same_pairs(streamed, run_loop(BUDGET), f"features_limit={BUDGET}")
+        del streamed
+        out["launches"], out["launches_budget"] = launches, launches_b
+
+        # not gated: frames/s of each loop, interleaved twice
+        loops = {"stream": run_stream, "extract_batch_loop": run_loop}
+        if native:
+            loops = {"decode_pool": run_pool, **loops,
+                     "serial_decode_extract": lambda: run_loop(serial=True)}
+        fps = {k: [] for k in loops}
+        for _ in range(2):
+            for k, fn in loops.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                fps[k].append(STREAM_FRAMES / (time.perf_counter() - t0))
+        out["frames_per_s"] = fps
+
+        # one instrumented stream run: batch spans by CUDA events, host time
+        # in extract_batch and in the readback waits (_fetch), peak memory
+        spans, host_s = [], {"extract_batch": 0.0, "fetch": 0.0}
+        real_extract, real_fetch = extractor.extract_batch, st._fetch
+
+        def timed_extract(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            res = real_extract(*a, **kw)
+            e1.record()
+            host_s["extract_batch"] += time.perf_counter() - t0
+            spans.append((e0, e1))
+            return res
+
+        def timed_fetch(*a, **kw):
+            t0 = time.perf_counter()
+            res = real_fetch(*a, **kw)
+            host_s["fetch"] += time.perf_counter() - t0
+            return res
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        extractor.extract_batch, st._fetch = timed_extract, timed_fetch
+        try:
+            t0 = time.perf_counter()
+            run_stream()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        finally:
+            extractor.extract_batch, st._fetch = real_extract, real_fetch
+    busy_ms = sum(a.elapsed_time(b) for a, b in spans)
+    window_ms = spans[0][0].elapsed_time(spans[-1][1])
+    out.update({"batch_span_share": busy_ms / window_ms,
+                "batch_span_ms": busy_ms, "window_ms": window_ms,
+                "instrumented_wall_s": wall_s,
+                "host_s_in_extract_batch": host_s["extract_batch"],
+                "host_s_in_fetch": host_s["fetch"],
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "phase_s": time.perf_counter() - t_phase})
+    rounds = "; ".join(f"{k} {' / '.join(f'{v:.2f}' for v in vs)}"
+                       for k, vs in fps.items())
+    print(f"[stream] {STREAM_FRAMES} {H}x{W} frames at B={B}, depth 2"
+          f"{', JPEG q92' if native else ', from memory via 4 pinned buffers'}"
+          f": every frame "
+          f"byte-identical to extract_batch, with and without features_limit"
+          f"={BUDGET}; frames/s (rounds 1 / 2): {rounds}; {smi}", flush=True)
+    print(f"[stream] one instrumented stream: the card inside a batch's work "
+          f"{out['batch_span_share']:.3f} of the window ({busy_ms:.1f} of "
+          f"{window_ms:.1f} ms, CUDA events around each extract_batch call); "
+          f"host in extract_batch {host_s['extract_batch']:.2f} s, in _fetch "
+          f"(readback waits{', compaction' if native else ''}) "
+          f"{host_s['fetch']:.3f} s, of "
+          f"{wall_s:.2f} s; peak device memory {out['peak_mem_gb']:.3f} GB; "
+          f"{smi}", flush=True)
+    print(json.dumps({"stream": out}, ensure_ascii=False), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2048,7 +2314,11 @@ def main() -> int:
     service_phase(torch, extractor, dev, smi)
     torch.cuda.empty_cache()
 
-    # 13. K5's probe lines
+    # 13. the I/O tier and the streaming executor on 62 1080p frames
+    stream_phase(torch, extractor, cfg, dev, smi)
+    torch.cuda.empty_cache()
+
+    # 14. K5's probe lines
     from sift_features_tpu_torch.ops.kernels import orientation as k5
 
     cap5 = capture_first_calls(torch, {"K5": (EXTRACTOR, "orientation_hist_peaks")},
@@ -2056,7 +2326,7 @@ def main() -> int:
     k5_probe_lines(torch, k5, *cap5["K5"], rows["K5"]["ms"])
     del cap5
 
-    # 14. the kernels line
+    # 15. the kernels line
     paths = {"K4": ("refine_mode=step, 240x320", step_launches),
              "K6′": (f"budget, features_limit={BUDGET}", budget_row["launches"]),
              "K10": ("refine_mode=region main step", modes["region"]["launches"]),

@@ -13,6 +13,8 @@ Entry points run on the card unless the caller asks for the CPU
     sift(img, device="cuda")                  -> (kps (N, 5) f32, desc (N, 128) u8)
     match_descriptors(d1, d2, cross_check=True, device="cuda")
     descriptor_index(db=None, device="cuda")  -> service.DescriptorIndex
+    stream(paths, batch, hw, device="cuda")   JPEG files -> per-batch
+                                              [(kps, desc), ...] per frame
     SiftConfig                                the frozen parameter spec
 """
 
@@ -43,3 +45,16 @@ def descriptor_index(db=None, *, device="cuda"):
     from .service import DescriptorIndex
 
     return DescriptorIndex(db, device=device)
+
+
+def stream(paths, batch, hw, features_limit=None, config=DEFAULT_CONFIG,
+           device="cuda", **kw):
+    """Streaming serving loop: JPEG files -> per-frame (kps, desc), with
+    decode / H2D / extraction / readback overlapped; see
+    sift_features_tpu_torch.parallel.stream. Raises at the call when the
+    device is missing."""
+    from .parallel.stream import stream_extract_paths
+
+    return stream_extract_paths(paths, batch, hw, config,
+                                features_limit=features_limit, device=device,
+                                **kw)

@@ -1,1 +1,2 @@
-"""Host-side I/O of the port: the persistent descriptor database."""
+"""Host-side I/O of the port: image loading, the native decode and output
+tiers, the golden snapshot parsers and the persistent descriptor database."""

@@ -9,7 +9,8 @@
   `_extract_single`;
 - the port's `extract_batch(device="cpu")` on a 2 x 96 x 128 batch (7
   octaves: 4 on the kernel path, 3 tiny) against JAX `extract_batch`, in
-  the default configuration and in each other refine and window mode;
+  the default configuration and in each other refine and window mode, and
+  the same batch through the port's streaming executor;
 - the matcher against `_match_jit`.
 
 The JAX references are the expensive part (XLA:CPU compiles every
@@ -224,12 +225,19 @@ MODES = {"default": {}, "region": {"refine_mode": "region"},
 
 
 def test_extract_batch_matches_jax(ref):
+    from sift_features_tpu_torch.parallel.stream import stream_extract
+
     want = ref["extract"]
     for mode, fields in MODES.items():
         got = {k: v.numpy() for k, v in tx.extract_batch(
             ref["imgs"], dataclasses.replace(CFG, **fields),
             device="cpu").items()}
         _check_extract(got, want, mode)
+    # the slice as a whole: the two frames through the streaming executor
+    streamed = list(stream_extract(iter([ref["imgs"]]), compact=False,
+                                   device="cpu"))
+    assert len(streamed) == 1
+    _check_extract(streamed[0], want, "stream")
 
 
 def _check_extract(got, want, mode):

@@ -970,3 +970,98 @@ def test_storage_modes_card_matches_cpu(dev):
             rb = tx.extract_batch(imgs, cfg, features_limit=37, device=dev)
             want = tx._truncate_result(rc, 37)
             assert all(torch.equal(rb[k], want[k]) for k in want)
+
+
+def _stream_reference(dev, frames, b, cfg=CFG):
+    """Per-frame (kps, desc) of extract_batch on the card, b frames a call."""
+    from sift_features_tpu_torch.models.extractor import extract_batch
+
+    want = []
+    for lo in range(0, len(frames), b):
+        r = extract_batch(frames[lo:lo + b], cfg, device=dev)
+        v = r["valid"].cpu().numpy()
+        want += [(r["kps"][f].cpu().numpy()[v[f]],
+                  r["desc"][f].cpu().numpy()[v[f]]) for f in range(len(v))]
+    return want
+
+
+def _check_stream(got, want):
+    """Streamed batches (per-frame pairs, or compact=False dicts, masked
+    here) against _stream_reference's pairs."""
+    got = [pair for batch in got for pair in (
+        batch if isinstance(batch, list) else
+        [(k[v], d[v]) for k, d, v in zip(batch["kps"], batch["desc"],
+                                         batch["valid"])])]
+    assert len(got) == len(want)
+    for (kps, desc), (wk, wd) in zip(got, want):
+        assert len(kps) > 20
+        assert kps.tobytes() == wk.tobytes() and desc.tobytes() == wd.tobytes()
+
+
+def test_stream_pinned_rotation_on_card(dev):
+    """The streaming executor on the card gives every frame equal to
+    extract_batch: a producer that rewrites one pinned buffer as soon as
+    copy_done's event has completed (producer_rotates, depth=2), and a
+    producer that rewrites one pageable buffer at once (the snapshot
+    path); also with window_kernel="perkey", whose extraction takes no
+    host sync of its own. compact=False: the native output tier, which
+    compaction needs, may not build on the card's machine."""
+    import dataclasses
+
+    from sift_features_tpu_torch.parallel.stream import stream_extract
+
+    frames = smooth_images(4, 6, 96, 128)
+    for cfg in (CFG, dataclasses.replace(CFG, window_kernel="perkey")):
+        want = _stream_reference(dev, frames, 2, cfg)
+        pinned = torch.empty((2, 96, 128), dtype=torch.uint8,
+                             pin_memory=True).numpy()
+        events = []
+
+        def rotating():
+            for i in range(3):
+                if events:
+                    events[-1].synchronize()
+                pinned[:] = frames[2 * i:2 * i + 2]
+                yield pinned
+
+        _check_stream(stream_extract(rotating(), cfg, depth=2,
+                                     compact=False, producer_rotates=True,
+                                     device=dev, copy_done=events.append),
+                      want)
+        assert len(events) == 3
+        pageable = np.empty((2, 96, 128), np.uint8)
+
+        def reusing():
+            for i in range(3):
+                pageable[:] = frames[2 * i:2 * i + 2]
+                yield pageable
+
+        _check_stream(stream_extract(reusing(), cfg, depth=2, compact=False,
+                                     device=dev), want)
+
+
+def test_stream_paths_on_card(dev, tmp_path):
+    """JPEG files through the native decode pool's rotating pinned buffers
+    (stream_extract_paths, ragged tail) equal extract_batch on their
+    decode_gray frames. Needs libjpeg's header (the native tier builds
+    with it)."""
+    import subprocess
+
+    from sift_features_tpu_torch.io.native_loader import decode_gray
+    from sift_features_tpu_torch.io.native_output import write_jpeg
+    from sift_features_tpu_torch.parallel.stream import stream_extract_paths
+
+    probe = subprocess.run(["g++", "-E", "-x", "c++", "-"],
+                           input="#include <jpeglib.h>\n", text=True,
+                           capture_output=True)
+    if probe.returncode != 0:
+        pytest.skip("g++ finds no jpeglib.h: the native tier cannot build")
+    frames = smooth_images(4, 5, 96, 128)
+    paths = []
+    for i, img in enumerate(frames):
+        paths.append(str(tmp_path / f"f{i}.jpg"))
+        write_jpeg(paths[-1], img, quality=92)
+    decoded = np.stack([decode_gray(p) for p in paths])
+    _check_stream(stream_extract_paths(paths, 2, (96, 128), depth=2,
+                                       device=dev),
+                  _stream_reference(dev, decoded, 2))

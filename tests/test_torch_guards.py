@@ -59,6 +59,27 @@ def test_entry_points_need_the_card(monkeypatch):
     assert kps.shape == (0, 5) and desc.shape == (0, 128)
 
 
+def test_stream_needs_the_card(monkeypatch, tmp_path):
+    """The streaming entry points raise at the call without a card, and run
+    with device="cpu"."""
+    from sift_features_tpu_torch.io.native_output import write_jpeg
+    from sift_features_tpu_torch.parallel.stream import stream_extract
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    img = np.zeros((32, 32), np.uint8)
+    path = str(tmp_path / "flat.jpg")
+    write_jpeg(path, img)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.stream([path], 1, (32, 32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stream_extract(iter([img[None]]))
+    [[(kps, desc)]] = list(port.stream([path], 1, (32, 32), device="cpu"))
+    assert kps.shape == (0, 5) and desc.shape == (0, 128)
+    [host] = list(stream_extract(iter([img[None]]), compact=False,
+                                 device="cpu"))
+    assert host["valid"].shape[0] == 1 and not host["valid"].any()
+
+
 def test_wrappers_never_fall_back():
     """A tensor that is neither on the CPU nor on a CUDA card reaches the
     kernel path, which refuses it: no silent plain-version fallback."""
