@@ -73,7 +73,8 @@ Phases (any failure stops the script with a non-zero exit):
       at 256 1080p frames, each its own seeded texture, added by 64
       add_frames calls at B=4 (the main path's kernels launched); a new
       frame's query against all ~2.2M rows (median of 3, distances/s, peak
-      memory, not gated); gated: the self-queries of frames 0 (through
+      memory, not gated; the same on the int8 path, gated equal); gated:
+      the self-queries of frames 0 (through
       query_image, whose keypoints and descriptors equal extract's), 127
       and 255 match only rows of their frame at distance 0, the chunked
       matcher equals its one-chunk form on the first 8 frames, save / load
@@ -93,12 +94,29 @@ Phases (any failure stops the script with a non-zero exit):
       readback waits, peak device memory. Without libjpeg's header (an
       explicit g++ check) it prints "[stream] native tier not built" and
       streams the frames from memory through four rotating pinned buffers
-      (the pool's contract; compact=False) instead;
-  14. K5's probe lines, not gated: K5 with every lane dead and with its
+      (the pool's contract) instead; either way with the default
+      compact=True;
+  14. dist: the distributed path (parallel/). (a) One rank on a NCCL
+      group (runner.init_distributed on a free localhost port):
+      extract_match_step on the B=4 1080p batch with 128 queries a frame,
+      then with features_limit=2048, gated byte-equal to extract_batch
+      (budgeted likewise) and its matches to the tagged dense reference
+      (ring.match_tagged_dense on the card), launching the main path's
+      kernels (K6′ and not K6 with the limit); not gated: the median of 10
+      steps interleaved with 10 extract_batch steps, peak memory. (b) Two
+      ranks on the one card over gloo (spawned processes, both on cuda:0,
+      the hops staged through pinned host memory): gated, ring_match of a
+      new frame's ~8.7k rows against the four frames' ~35k equal to
+      match_brute_force, and extract_match_step equal to (a)'s; not
+      gated, their wall times and bytes per hop. (c) SIFT_INT8_MATCH=1:
+      gated, the main step's matching of u8 rows equal to the f64 path's;
+      not gated, both times, and phase 12's 2.2M-row query (int8 against
+      f64, with its peaks, run in phase 12);
+  15. K5's probe lines, not gated: K5 with every lane dead and with its
       per-sample math replaced by constants (probes/: a copy of its
       kernel), by CUDA events around the wrapper and by device time (the
       calls replayed from a CUDA graph);
-  15. one JSON line with every kernel's numbers.
+  16. one JSON line with every kernel's numbers.
 The last line is {"ok": true, "device": {...}}.
 
 It needs one CUDA card and nvcc; without a card it exits with code 2 and
@@ -1751,6 +1769,35 @@ def self_match_check(db, f: int, desc, r, what: str) -> int:
     return len(r.query_idx)
 
 
+def int8_queries(torch, query, want, base_gb: float, reps: int = 3) -> dict:
+    """reps calls of query() with SIFT_INT8_MATCH=1 (set around them only),
+    each held equal to `want` (a QueryResult or Matches); their times and
+    the peak device memory above the allocations before them."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    saved = os.environ.get("SIFT_INT8_MATCH")
+    os.environ["SIFT_INT8_MATCH"] = "1"
+    try:
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            got = query()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            for f, a in vars(want).items():
+                b = getattr(got, f)
+                if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+                    raise SystemExit(f"chip_smoke: int8 matcher: {f} differs "
+                                     f"from the f64 path's")
+    finally:
+        if saved is None:
+            del os.environ["SIFT_INT8_MATCH"]
+        else:
+            os.environ["SIFT_INT8_MATCH"] = saved
+    return {"ms": ms, "median_ms": statistics.median(ms),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "mem_before_gb": base_gb}
+
+
 def service_phase(torch, extractor, dev, smi: str) -> dict:
     """The descriptor-database service at full width: an index of 256
     1080p frames built by 64 add_frames calls at the main path's B=4 (the
@@ -1806,6 +1853,9 @@ def service_phase(torch, extractor, dev, smi: str) -> dict:
     q_med = statistics.median(q_ms)
     if not len(r_new.query_idx) or not np.isfinite(r_new.distance).all():
         raise SystemExit("chip_smoke: service: the new frame's query failed")
+    # the same query on the int8 path (SIFT_INT8_MATCH=1 around these
+    # calls only): equal to the f64 path's, timed and its peak taken alike
+    int8 = int8_queries(torch, lambda: idx.query(desc_new), r_new, base_gb)
 
     # self-queries: frame 0 through query_image, frames 127 and 255
     kps0, desc0, r0 = idx.query_image(service_frames(0, 1)[0])
@@ -1855,6 +1905,8 @@ def service_phase(torch, extractor, dev, smi: str) -> dict:
            "query_median_ms": q_med,
            "distances_per_s": len(desc_new) * n_rows / (q_med / 1e3),
            "query_peak_mem_gb": peak_gb, "mem_before_query_gb": base_gb,
+           "int8_query_ms": int8["ms"], "int8_query_median_ms": int8["median_ms"],
+           "int8_query_peak_mem_gb": int8["peak_gb"],
            "new_frame_matches_kept": int(len(r_new.query_idx)),
            "self_matches_kept": kept, "chunks_on_8_frames": n_chunks,
            "save_s": save_s, "load_s": load_s,
@@ -1864,7 +1916,9 @@ def service_phase(torch, extractor, dev, smi: str) -> dict:
           f"of B={B}: median {out['add_frames_median_ms']:.1f} ms a call; {n_rows} "
           f"rows, {db_bytes / 1e6:.1f} MB; query of {len(desc_new)} rows: median "
           f"{q_med:.1f} ms of 3 ({out['distances_per_s']:.3e} distances/s), peak "
-          f"{peak_gb:.3f} GB ({base_gb:.3f} before); self-queries of frames "
+          f"{peak_gb:.3f} GB ({base_gb:.3f} before); int8 (SIFT_INT8_MATCH=1) "
+          f"equal, median {int8['median_ms']:.1f} ms of 3, peak "
+          f"{int8['peak_gb']:.3f} GB; self-queries of frames "
           f"{list(kept)} (0 by query_image) kept {list(kept.values())} matches, all in "
           f"their frame at distance 0; chunked matcher equal to one chunk on 8 "
           f"frames ({n_chunks} chunks); save {save_s:.1f} s, load {load_s:.1f} s "
@@ -1917,15 +1971,6 @@ class PinnedRotation:
             yield self.bufs[self.slot][:n]
 
 
-def frame_pairs(host: dict, compact_batch=None) -> list:
-    """Per-frame (kps, desc) pairs of a padded host result: the native
-    compaction, or NumPy masking where the native tier is not built."""
-    if compact_batch is not None:
-        return compact_batch(host["kps"], host["desc"], host["valid"])
-    return [(host["kps"][f][host["valid"][f]], host["desc"][f][host["valid"][f]])
-            for f in range(host["valid"].shape[0])]
-
-
 def same_pairs(got: list, want: list, what: str) -> int:
     """Every frame's (kps, desc) byte-identical; returns the keypoints."""
     if len(got) != len(want):
@@ -1952,9 +1997,11 @@ def stream_phase(torch, extractor, cfg, dev, smi: str) -> dict:
     instrumented stream run: the share of its window the card spends
     inside a batch's work (CUDA events around each extract_batch call),
     the host time in extract_batch and in the readback waits, and peak
-    device memory. Without libjpeg's header the frames stream from memory
-    through rotating pinned buffers (compact=False, PinnedRotation) and the
-    JPEG parts are left out."""
+    device memory. Every stream compacts its results per frame (the
+    default compact=True), as the loops do, through the stream's own
+    compact_frames. Without libjpeg's header the frames stream from memory
+    through rotating pinned buffers (PinnedRotation) and the JPEG parts are
+    left out."""
     import tempfile
 
     from sift_features_tpu_torch.ops.kernels import build
@@ -1972,12 +2019,10 @@ def stream_phase(torch, extractor, cfg, dev, smi: str) -> dict:
                for lo in range(0, STREAM_FRAMES, B)]
     with tempfile.TemporaryDirectory() as tmp:
         paths = [f"{tmp}/f{i:03d}.jpg" for i in range(STREAM_FRAMES)]
-        compact_batch = None
         if native:
             from sift_features_tpu_torch.io.native_loader import (BatchLoader,
                                                                   decode_gray)
-            from sift_features_tpu_torch.io.native_output import (compact_batch,
-                                                                  write_jpeg)
+            from sift_features_tpu_torch.io.native_output import write_jpeg
 
             t0 = time.perf_counter()
             for p, img in zip(paths, frames):
@@ -2004,10 +2049,10 @@ def stream_phase(torch, extractor, cfg, dev, smi: str) -> dict:
                                               depth=2, device=dev)
                 return [p for batch in res for p in batch]
             rot = PinnedRotation(torch, decoded, batches, n_buffers=4)
-            res = st.stream_extract(rot, cfg, limit, depth=2, compact=False,
+            res = st.stream_extract(rot, cfg, limit, depth=2,
                                     producer_rotates=True, device=dev,
                                     copy_done=rot.copy_done)
-            return [p for host in res for p in frame_pairs(host)]
+            return [p for batch in res for p in batch]
 
         def run_loop(limit=None, serial=False):
             pairs = []
@@ -2016,7 +2061,7 @@ def stream_phase(torch, extractor, cfg, dev, smi: str) -> dict:
                         else decoded[s])
                 res = extractor.extract_batch(imgs, cfg, limit, device=dev)
                 host = {k: v.cpu().numpy() for k, v in res.items()}
-                pairs += frame_pairs(host, compact_batch)
+                pairs += st.compact_frames(host)
             return pairs
 
         def run_pool():
@@ -2114,11 +2159,323 @@ def stream_phase(torch, extractor, cfg, dev, smi: str) -> dict:
           f"{out['batch_span_share']:.3f} of the window ({busy_ms:.1f} of "
           f"{window_ms:.1f} ms, CUDA events around each extract_batch call); "
           f"host in extract_batch {host_s['extract_batch']:.2f} s, in _fetch "
-          f"(readback waits{', compaction' if native else ''}) "
+          f"(readback waits, compaction) "
           f"{host_s['fetch']:.3f} s, of "
           f"{wall_s:.2f} s; peak device memory {out['peak_mem_gb']:.3f} GB; "
           f"{smi}", flush=True)
     print(json.dumps({"stream": out}, ensure_ascii=False), flush=True)
+    return out
+
+
+DIST_RANKS = 2          # the ranks phase 14 (b) starts on the one card
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def check_step(torch, got: dict, want: dict, what: str) -> int:
+    """An extract_match_step result against extract_batch's on the same
+    frames (want; its src_idx aside) and the tagged dense reference on the
+    card (ring.match_tagged_dense): byte-equal. Returns the kept matches."""
+    from sift_features_tpu_torch.parallel import pipeline, ring
+
+    if set(got) != set(pipeline.OUTPUT_KEYS):
+        raise SystemExit(f"chip_smoke: dist: {what}: keys {sorted(got)}")
+    for k in pipeline.OUTPUT_KEYS[:6]:
+        if not torch.equal(got[k], want[k]):
+            raise SystemExit(f"chip_smoke: dist: {what}: {k} differs from "
+                             f"extract_batch")
+    _, q, qv, qt, t, tv, tt = pipeline.queries_and_database(
+        got, 0, got["query_idx"].shape[1])
+    ref = ring.match_tagged_dense(t, tv, tt, q, qv, qt)
+    for k, r in zip(("match_train", "match_dist", "match_keep"), ref):
+        if not torch.equal(got[k].reshape(-1), r):
+            raise SystemExit(f"chip_smoke: dist: {what}: {k} differs from the "
+                             f"tagged dense reference")
+    kept = int(got["match_keep"].sum())
+    if kept < got["match_keep"].shape[0]:
+        raise SystemExit(f"chip_smoke: dist: {what}: only {kept} matches kept")
+    return kept
+
+
+def dist_child(rank: int, port: int, inputs: str, out: str) -> None:
+    """One of phase 14 (b)'s ranks, both on cuda:0 over gloo: ring_match of
+    the inputs' query rows against their train rows and extract_match_step
+    of their frames, each against the parent's results; writes its times
+    and traffic to `out`. Raises (a non-zero exit) on any difference."""
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    import torch
+    import torch.distributed as dist
+
+    from sift_features_tpu_torch.config import DEFAULT_CONFIG
+    from sift_features_tpu_torch.models import extractor
+    from sift_features_tpu_torch.parallel import mesh as tmesh
+    from sift_features_tpu_torch.parallel import pipeline, ring
+    from sift_features_tpu_torch.parallel.runner import (barrier,
+                                                         init_distributed)
+
+    init_distributed(f"127.0.0.1:{port}", DIST_RANKS, rank, device="cuda")
+    try:
+        z = np.load(inputs)
+        mesh = tmesh.make_mesh(device="cuda")
+        res = {"rank": rank, "backend": dist.get_backend(),
+               "device": str(mesh.device), "barrier_s": barrier("start", 120.0)}
+        ring.ring_match(z["train"][:64], z["query"][:64], mesh)  # warm
+        torch.cuda.synchronize()
+        base = dict(tmesh.TRAFFIC)
+        t0 = time.perf_counter()
+        qi, ti, d = ring.ring_match(z["train"], z["query"], mesh)
+        res["ring_s"] = time.perf_counter() - t0
+        hops = tmesh.TRAFFIC["hops"] - base["hops"]
+        res["ring_hops"] = hops
+        res["ring_bytes_per_hop"] = (tmesh.TRAFFIC["hop_bytes"]
+                                     - base["hop_bytes"]) / max(hops, 1)
+        for name, a in (("query_idx", qi), ("train_idx", ti), ("distance", d)):
+            w = z[f"ring_{name}"]
+            if a.dtype.kind != w.dtype.kind or not np.array_equal(a, w):
+                raise SystemExit(f"rank {rank}: ring_match {name} differs from "
+                                 f"match_brute_force")
+        res["ring_kept"] = int(len(qi))
+        frames = z["frames"]
+        n_oct = extractor._n_octaves(*frames.shape[1:], DEFAULT_CONFIG)
+        steps = []
+        for _ in range(2):
+            barrier("step", 120.0)
+            base = dict(tmesh.TRAFFIC)
+            t0 = time.perf_counter()
+            got = pipeline.extract_match_step(frames, n_oct, DEFAULT_CONFIG,
+                                              mesh, 128)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+        res["step_s"] = steps
+        hops = tmesh.TRAFFIC["hops"] - base["hops"]
+        res["step_hops"] = hops
+        res["step_bytes_per_hop"] = (tmesh.TRAFFIC["hop_bytes"]
+                                     - base["hop_bytes"]) / max(hops, 1)
+        res["step_gather_bytes"] = (tmesh.TRAFFIC["gather_bytes"]
+                                    - base["gather_bytes"])
+        for k in pipeline.OUTPUT_KEYS:
+            a, w = got[k].cpu().numpy(), z[f"step_{k}"]
+            if a.dtype != w.dtype or a.tobytes() != w.tobytes():
+                raise SystemExit(f"rank {rank}: extract_match_step {k} differs "
+                                 f"from the one-rank step's")
+        res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        with open(out, "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def two_ranks_on_card(torch, inputs: dict, tmp: str) -> list:
+    """Phase 14 (b): DIST_RANKS processes (start method spawn: CUDA is live
+    here) on the one card over gloo, each running dist_child; every one
+    must exit 0. Returns their result dicts."""
+    import multiprocessing
+
+    path = os.path.join(tmp, "dist_inputs.npz")
+    np.savez(path, **inputs)
+    port = free_port()
+    ctx = multiprocessing.get_context("spawn")
+    outs = [os.path.join(tmp, f"rank{r}.json") for r in range(DIST_RANKS)]
+    procs = [ctx.Process(target=dist_child, args=(r, port, path, outs[r]))
+             for r in range(DIST_RANKS)]
+    try:
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=300)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if any(c != 0 for c in codes):
+        raise SystemExit(f"chip_smoke: dist: a rank on the card failed, exit "
+                         f"codes {codes}")
+    results = []
+    for o in outs:
+        with open(o) as f:
+            results.append(json.load(f))
+    return results
+
+
+def dist_phase(torch, extractor, cfg, dev, frames, service: dict,
+               smi: str) -> dict:
+    """The distributed path. (a) One rank on a NCCL group: extract_match_step
+    on the B=4 1080p batch, then with features_limit, each byte-equal to
+    extract_batch (budgeted likewise) and its matches to the tagged dense
+    reference, launching the main path's kernels; the median of 10 steps
+    interleaved with 10 extract_batch steps; the step's peak memory. (b)
+    Two ranks on the one card over gloo (dist_child): ring_match of a new
+    frame's rows against the four frames' rows equal to match_brute_force,
+    and extract_match_step equal to (a)'s; wall times, bytes per hop. (c)
+    SIFT_INT8_MATCH=1: the main step's matching (each frame's top-1024 u8
+    rows against the next frame's) equal to the f64 path's, timed beside
+    it, with phase 12's 2.2M-row query times."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from sift_features_tpu_torch.ops import matcher
+    from sift_features_tpu_torch.ops.kernels import build
+    from sift_features_tpu_torch.parallel import mesh as tmesh
+    from sift_features_tpu_torch.parallel import pipeline
+    from sift_features_tpu_torch.parallel.runner import (barrier,
+                                                         init_distributed)
+
+    t_phase = time.perf_counter()
+    n_oct = extractor._n_octaves(H, W, cfg)
+    out = {"frames": B, "queries_per_frame": 128, "card": smi}
+
+    # (a) one rank, NCCL
+    init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device=dev)
+    try:
+        out["backend"] = dist.get_backend()
+        out["barrier_s"] = barrier("phase 14", 60.0)
+        mesh = tmesh.make_mesh(device=dev)
+
+        def step(limit=None):
+            return pipeline.extract_match_step(frames, n_oct, cfg, mesh, 128,
+                                               limit)
+
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        build.reset_launches()
+        traffic = dict(tmesh.TRAFFIC)
+        got = step()
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["mem_before_gb"] = base_gb
+        out["nccl_gathers_per_step"] = tmesh.TRAFFIC["gathers"] - traffic["gathers"]
+        missing = [k for k in WRAPPERS if not launches.get(k)]
+        if missing or launches.get("K4"):
+            raise SystemExit(f"chip_smoke: dist: step launches {launches}")
+        want = extractor.extract_batch(frames, cfg, device=dev)
+        out["kept"] = check_step(torch, got, want, "extract_match_step")
+        build.reset_launches()
+        got_b = step(BUDGET)
+        torch.cuda.synchronize()
+        launches_b = dict(build.LAUNCHES)
+        if not launches_b.get("K6′") or launches_b.get("K6"):
+            raise SystemExit(f"chip_smoke: dist: budget launches {launches_b}")
+        out["kept_budget"] = check_step(
+            torch, got_b, extractor.extract_batch(frames, cfg, BUDGET, device=dev),
+            f"extract_match_step, features_limit={BUDGET}")
+        del got_b
+        out["launches"], out["launches_budget"] = launches, launches_b
+
+        # not gated: 10 steps interleaved with 10 extract_batch steps
+        step_s, eb_s = [], []
+        for _ in range(10):
+            for fn, acc in ((step, step_s), (lambda: extractor.extract_batch(
+                    frames, cfg, device=dev), eb_s)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                acc.append((time.perf_counter() - t0) * 1e3)
+        out.update({"step_ms": step_s, "extract_batch_ms": eb_s,
+                    "step_median_ms": statistics.median(step_s),
+                    "extract_batch_median_ms": statistics.median(eb_s)})
+        out["step_ratio"] = out["step_median_ms"] / out["extract_batch_median_ms"]
+    finally:
+        dist.destroy_process_group()
+
+    # (c) int8: the main step's matching, each frame's top-1024 u8 rows
+    from sift_features_tpu_torch.models.extractor import stable_top_k
+
+    resp = torch.where(want["valid"], want["kps"][..., 4],
+                       torch.tensor(float("-inf"), device=dev))
+    top = stable_top_k(resp, N_MATCH)[1]
+    d8 = torch.gather(want["desc"], 1, top[..., None].expand(-1, -1, 128))
+
+    def main_matches():
+        return [matcher.match_brute_force(d8[(i + 1) % B], d8[i], device=dev)
+                for i in range(B)]
+
+    class Pairs:       # the B Matches as one object of arrays
+        def __init__(self, ms):
+            for f in ("query_idx", "train_idx", "distance"):
+                setattr(self, f, np.concatenate([getattr(m, f) for m in ms]))
+
+    f64 = Pairs(main_matches())
+    f32 = [matcher.match_dense(d8[(i + 1) % B].float(), d8[i].float())
+           for i in range(B)]
+    if not np.array_equal(f64.distance, np.concatenate(
+            [m[1][m[2]].cpu().numpy() for m in f32])):
+        raise SystemExit("chip_smoke: dist: the u8 matches differ from the f32 "
+                         "step's")
+    f64_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        main_matches()
+        f64_ms.append((time.perf_counter() - t0) * 1e3)
+    int8 = int8_queries(torch, lambda: Pairs(main_matches()), f64, 0.0, reps=5)
+    out["int8_main_step"] = {"f64_ms": f64_ms, "f64_median_ms": statistics.median(f64_ms),
+                             "int8_ms": int8["ms"], "int8_median_ms": int8["median_ms"]}
+    out["int8_service_query"] = {
+        "f64_median_ms": service["query_median_ms"],
+        "f64_peak_mem_gb": service["query_peak_mem_gb"],
+        "int8_median_ms": service["int8_query_median_ms"],
+        "int8_peak_mem_gb": service["int8_query_peak_mem_gb"]}
+
+    # (b) two ranks on the one card over gloo
+    valid = want["valid"].cpu().numpy()
+    train = want["desc"].cpu().numpy()[valid]
+    _, query = extractor.extract(service_frames(1, 1)[0], device=dev)
+    ref = matcher.match_brute_force(train, query, device=dev)
+    inputs = {"frames": frames, "train": train, "query": query,
+              "ring_query_idx": ref.query_idx, "ring_train_idx": ref.train_idx,
+              "ring_distance": ref.distance,
+              **{f"step_{k}": v.cpu().numpy() for k, v in got.items()}}
+    del got, want
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = two_ranks_on_card(torch, inputs, tmp)
+        out["two_ranks_wall_s"] = time.perf_counter() - t0
+    out["two_ranks"] = ranks
+    out["ring_rows"] = {"train": int(len(train)), "query": int(len(query))}
+    out["phase_s"] = time.perf_counter() - t_phase
+    r0 = ranks[0]
+    print(f"[dist] (a) one rank, {out['backend']}: extract_match_step at B={B} "
+          f"{H}x{W}, 128 queries a frame, byte-equal to extract_batch and its "
+          f"matches to the tagged dense reference ({out['kept']} kept; "
+          f"features_limit={BUDGET}: {out['kept_budget']}); median step "
+          f"{out['step_median_ms']:.1f} ms against extract_batch "
+          f"{out['extract_batch_median_ms']:.1f} ms (10 each, interleaved): "
+          f"{out['step_ratio']:.3f}x; peak {out['peak_mem_gb']:.3f} GB; {smi}",
+          flush=True)
+    print(f"[dist] (b) {DIST_RANKS} ranks on one card over "
+          f"{r0['backend']} ({', '.join(r['device'] for r in ranks)}): "
+          f"ring_match of {len(query)} rows against {len(train)} equal to "
+          f"match_brute_force ({r0['ring_kept']} kept) in "
+          f"{max(r['ring_s'] for r in ranks) * 1e3:.1f} ms, "
+          f"{r0['ring_bytes_per_hop']:.0f} bytes a hop; extract_match_step "
+          f"equal to (a)'s in {max(r['step_s'][-1] for r in ranks) * 1e3:.1f} ms "
+          f"(first {max(r['step_s'][0] for r in ranks) * 1e3:.1f}), "
+          f"{r0['step_bytes_per_hop']:.0f} bytes a hop; wall "
+          f"{out['two_ranks_wall_s']:.1f} s with process start; {smi}",
+          flush=True)
+    s8 = out["int8_service_query"]
+    m8 = out["int8_main_step"]
+    print(f"[dist] (c) SIFT_INT8_MATCH=1 equal to the f64 path: the main step's "
+          f"{B} matches of {N_MATCH} u8 rows {m8['int8_median_ms']:.2f} ms "
+          f"against {m8['f64_median_ms']:.2f} ms (median of 5); the "
+          f"{service['rows']}-row query {s8['int8_median_ms']:.1f} ms against "
+          f"{s8['f64_median_ms']:.1f} ms, peak {s8['int8_peak_mem_gb']:.3f} "
+          f"against {s8['f64_peak_mem_gb']:.3f} GB; phase {out['phase_s']:.1f} s; "
+          f"{smi}", flush=True)
+    print(json.dumps({"dist": out}, ensure_ascii=False), flush=True)
     return out
 
 
@@ -2311,14 +2668,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 12. the descriptor-database service at 256 frames
-    service_phase(torch, extractor, dev, smi)
+    service = service_phase(torch, extractor, dev, smi)
     torch.cuda.empty_cache()
 
     # 13. the I/O tier and the streaming executor on 62 1080p frames
     stream_phase(torch, extractor, cfg, dev, smi)
     torch.cuda.empty_cache()
 
-    # 14. K5's probe lines
+    # 14. the distributed path: one NCCL rank, two ranks on the card, int8
+    dist_out = dist_phase(torch, extractor, cfg, dev, frames, service, smi)
+    torch.cuda.empty_cache()
+
+    # 15. K5's probe lines
     from sift_features_tpu_torch.ops.kernels import orientation as k5
 
     cap5 = capture_first_calls(torch, {"K5": (EXTRACTOR, "orientation_hist_peaks")},
@@ -2326,7 +2687,7 @@ def main() -> int:
     k5_probe_lines(torch, k5, *cap5["K5"], rows["K5"]["ms"])
     del cap5
 
-    # 15. the kernels line
+    # 16. the kernels line
     paths = {"K4": ("refine_mode=step, 240x320", step_launches),
              "K6′": (f"budget, features_limit={BUDGET}", budget_row["launches"]),
              "K10": ("refine_mode=region main step", modes["region"]["launches"]),
@@ -2353,9 +2714,14 @@ def main() -> int:
     kernels = []
     for k, (src, replaces) in KERNELS.items():
         path, counts = paths.get(k, ("main path", launches))
-        kernels.append({"name": k, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": counts.get(k, 0),
-                        "launches_path": path, **rows[k]})
+        row = {"name": k, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": counts.get(k, 0),
+               "launches_path": path, **rows[k]}
+        if k in WRAPPERS or k == "K6′":
+            # phase 14's one-rank extract_match_step (K6′: with the budget)
+            row["launches_dist"] = dist_out[
+                "launches_budget" if k == "K6′" else "launches"].get(k, 0)
+        kernels.append(row)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}, ensure_ascii=False))
     print(smi)

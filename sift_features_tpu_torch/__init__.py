@@ -12,7 +12,8 @@ Entry points run on the card unless the caller asks for the CPU
 
     sift(img, device="cuda")                  -> (kps (N, 5) f32, desc (N, 128) u8)
     match_descriptors(d1, d2, cross_check=True, device="cuda")
-    descriptor_index(db=None, device="cuda")  -> service.DescriptorIndex
+    descriptor_index(db=None, mesh=None, device=None)
+                                              -> service.DescriptorIndex
     stream(paths, batch, hw, device="cuda")   JPEG files -> per-batch
                                               [(kps, desc), ...] per frame
     SiftConfig                                the frozen parameter spec
@@ -39,12 +40,13 @@ def match_descriptors(d1, d2, cross_check=True, device="cuda"):
     return match_brute_force(d1, d2, cross_check=cross_check, device=device)
 
 
-def descriptor_index(db=None, *, device="cuda"):
-    """Queryable descriptor-database service (extract -> index -> query);
-    see sift_features_tpu_torch.service.DescriptorIndex."""
+def descriptor_index(db=None, mesh=None, axis_name="data", *, device=None):
+    """Queryable descriptor-database service (extract -> index -> query),
+    ring-matched over `mesh` when one is given; see
+    sift_features_tpu_torch.service.DescriptorIndex."""
     from .service import DescriptorIndex
 
-    return DescriptorIndex(db, device=device)
+    return DescriptorIndex(db, mesh, axis_name, device=device)
 
 
 def stream(paths, batch, hw, features_limit=None, config=DEFAULT_CONFIG,

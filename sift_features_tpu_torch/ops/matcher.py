@@ -27,13 +27,23 @@ order and moves only on a strictly smaller f32 distance, so ties still go
 to the lowest global index (jnp.argmin's rule), and the result equals the
 one-chunk form's bit for bit wherever a chunk's distances are those of the
 whole matrix: always on u8 descriptors, whose sums are exact in any order.
-JAX's ring matcher (`parallel/ring.py`) streams database shards with
+The ring matcher (`parallel/ring.py`) streams database shards with
 running minima by the same rule.
+
+SIFT_INT8_MATCH=1 (read at each call, as the JAX package reads it outside
+`jit`) takes JAX's opt-in int8 path for u8 x u8 input (JAX
+ops/matcher.py:_dot_qt_int8): the descriptors shifted by -128 into int8,
+their products by `torch._int_mm` (int8 x int8 -> int32), the distances
+exact integers in int32. They equal the f64 path's bit for bit (an integer
+below 2^24 is exact in f32), in half the bytes a chunk; each chunk takes
+TEMP_BYTES // (4 Q) train rows. Any other dtype ignores the variable, as
+in JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -73,18 +83,57 @@ def _chunk_d2(a_rows: torch.Tensor, b: torch.Tensor,
     return torch.clamp_min(d2.to(torch.float32), 0.0)
 
 
+def _int8(x: torch.Tensor) -> torch.Tensor:
+    """u8 descriptors shifted by -128 into int8 (x - 128 is x ^ 0x80)."""
+    return x.view(torch.int8) ^ -128
+
+
+def _chunk_d2_int8(a_rows: torch.Tensor, b8: torch.Tensor,
+                   bb8: torch.Tensor, n_q: int) -> torch.Tensor:
+    """(Q, n) int32 squared distances of the queries b8 (Q', D) int8 (the
+    shifted u8 rows, padded with zero rows to Q' >= 17), with
+    ||b8||^2 = bb8, to the u8 train rows a_rows (n, D). JAX's identity
+    a.b = a8.b8 + 128 (sum a + sum b) - 128^2 D, its terms collected per
+    query and per train row: ||a - b||^2 = ||a8||^2 + ||b8||^2 - 2 a8.b8,
+    every term an exact int32. torch._int_mm takes more than 16 rows and
+    inner and column sizes that are multiples of 8: the train rows are
+    padded to a multiple of 8 and the padding cut off."""
+    n = a_rows.shape[0]
+    a8 = _int8(a_rows)
+    if n % 8:
+        a8 = torch.cat([a8, a8.new_zeros((8 - n % 8, a8.shape[1]))])
+    aa8 = torch.sum(a8.to(torch.int32) ** 2, dim=1)
+    d2 = torch._int_mm(b8, a8.T)
+    d2.mul_(-2).add_(bb8[:, None]).add_(aa8[None, :])
+    return d2[:n_q, :n]
+
+
+def int8_match_enabled() -> bool:
+    """SIFT_INT8_MATCH, read at each call (JAX ops/matcher.py:51-55)."""
+    return bool(int(os.environ.get("SIFT_INT8_MATCH", "0")))
+
+
 def match_dense(d_train: torch.Tensor, d_query: torch.Tensor,
-                cross_check: bool = True):
+                cross_check: bool = True, int8: bool = False):
     """(T, D), (Q, D) -> (best_train (Q,) int64, distance (Q,) f32, keep (Q,)
     bool); keep marks mutual nearest neighbours when cross_check. The train
-    rows go in chunks of `TEMP_BYTES` (module note)."""
+    rows go in chunks of `TEMP_BYTES` (module note). int8=True on u8 x u8
+    input takes the int8 path (module note), with the same result."""
     n_q, n_t = d_query.shape[0], d_train.shape[0]
-    rows = max(1, TEMP_BYTES // (8 * max(n_q, 1)))
-    b = d_query.to(torch.float64)
-    bb = torch.sum(b * b, dim=1)
+    int8 = int8 and d_train.dtype == d_query.dtype == torch.uint8
+    if int8:
+        rows = max(8, TEMP_BYTES // (4 * max(n_q, 1)) // 8 * 8)
+        b = _int8(d_query)
+        b = torch.cat([b, b.new_zeros((max(0, 17 - n_q), b.shape[1]))])
+        bb = torch.sum(b.to(torch.int32) ** 2, dim=1)
+    else:
+        rows = max(1, TEMP_BYTES // (8 * max(n_q, 1)))
+        b = d_query.to(torch.float64)
+        bb = torch.sum(b * b, dim=1)
     best_query = []
     for t0 in range(0, max(n_t, 1), rows):
-        d2 = _chunk_d2(d_train if rows >= n_t else d_train[t0:t0 + rows], b, bb)
+        a = d_train if rows >= n_t else d_train[t0:t0 + rows]
+        d2 = (_chunk_d2_int8(a, b, bb, n_q) if int8 else _chunk_d2(a, b, bb))
         arg = torch.argmin(d2, dim=1)
         low = torch.gather(d2, 1, arg[:, None])[:, 0]
         if t0 == 0:
@@ -102,7 +151,7 @@ def match_dense(d_train: torch.Tensor, d_query: torch.Tensor,
         keep = best_query[best_train] == torch.arange(n_q, device=b.device)
     else:
         keep = torch.ones(n_q, dtype=torch.bool, device=b.device)
-    return best_train, sqrt_f32(best_d2), keep
+    return best_train, sqrt_f32(best_d2.to(torch.float32)), keep
 
 
 def _on(x, dev: torch.device) -> torch.Tensor:
@@ -119,7 +168,7 @@ def match_brute_force(d_train, d_query, cross_check: bool = True,
     on `device`, where a tensor that is already there is not copied."""
     dev = resolve_device(device)
     bt, dist, keep = match_dense(_on(d_train, dev), _on(d_query, dev),
-                                 cross_check)
+                                 cross_check, int8_match_enabled())
     bt, dist, keep = bt.cpu().numpy(), dist.cpu().numpy(), keep.cpu().numpy()
     qi = np.nonzero(keep)[0]
     return Matches(query_idx=qi, train_idx=bt[qi], distance=dist[qi])

@@ -39,23 +39,26 @@ from ..config import DEFAULT_CONFIG, SiftConfig
 from ..utils.device import resolve_device
 
 
+def compact_frames(host: dict) -> list:
+    """Per-frame (kps (n, 5) f32, desc (n, 128) u8) pairs of a padded host
+    result of NumPy arrays: each frame's valid rows, copied, in order (the
+    pairs of the JAX package's compact_batch, byte for byte)."""
+    return [(k[v], d[v]) for k, d, v in
+            zip(host["kps"], host["desc"], host["valid"])]
+
+
 def _fetch(res, n_frames: int, compact: bool, done=None):
     """Host results of one batch, its readback complete.
 
     res: the batch's result dict of host tensors (pinned on the card's
     path); done: the event recorded after their readback, waited on first.
     compact=True: per-frame (kps (n, 5) f32, desc (n, 128) u8) pairs, like
-    models.extractor.extract, compacted by the native output tier
-    (native/sift_output.cpp); compact=False: the padded arrays as NumPy,
-    cut to n_frames."""
-    from ..io.native_output import compact_batch
-
+    models.extractor.extract (compact_frames); compact=False: the padded
+    arrays as NumPy, cut to n_frames."""
     if done is not None:
         done.synchronize()
     host = {k: v.numpy()[:n_frames] for k, v in res.items()}
-    if not compact:
-        return host
-    return compact_batch(host["kps"], host["desc"], host["valid"])
+    return compact_frames(host) if compact else host
 
 
 def _to_card(frames: np.ndarray, dev: torch.device, h2d, snapshot: bool):
@@ -95,26 +98,13 @@ def _to_host(res: dict, d2h):
     return host, done
 
 
-def _check(device, compact: bool) -> torch.device:
-    """The stream's device, and with compact=True the native output tier,
-    loaded at the call: a missing card or a failed build raises before any
-    batch is read."""
-    dev = resolve_device(device)
-    if compact:
-        from ..io import native_output
-
-        native_output._get_lib()
-    return dev
-
-
 def stream_extract(batches, config: SiftConfig = DEFAULT_CONFIG,
                    features_limit: int | None = None, depth: int = 2,
                    compact: bool = True, producer_rotates: bool = False,
                    device="cuda", copy_done=None):
     """Iterate host (b, H, W) u8 batches through `device` with `depth`
     results held; yields per-batch host results (see _fetch). Raises at
-    the call, not at the first batch, when the device is missing or, with
-    compact=True, the native output tier cannot be built.
+    the call, not at the first batch, when the device is missing.
 
     Every batch is padded to the first batch's frame count, as the JAX
     package does to keep one compiled program; padded frames are dropped
@@ -130,7 +120,7 @@ def stream_extract(batches, config: SiftConfig = DEFAULT_CONFIG,
     without it: a copy from pageable memory has read the buffer when it
     returns.
     """
-    dev = _check(device, compact)
+    dev = resolve_device(device)
     return _stream(iter(batches), config, features_limit, depth, compact,
                    producer_rotates, dev, copy_done)
 
@@ -186,10 +176,10 @@ def stream_extract_paths(paths, batch: int, hw: tuple[int, int],
     decode pool feeds the card from rotating pinned buffers. Yields
     per-batch results (see stream_extract); frames are cropped /
     zero-padded to `hw` by the loader. Raises at the call when the device
-    is missing or a native tier it needs cannot be built."""
+    is missing or the native decode tier cannot be built."""
     from ..io import native_loader
 
-    dev = _check(device, compact)
+    dev = resolve_device(device)
     native_loader._get_lib()
     return _stream_paths(list(paths), batch, hw, config, features_limit,
                          depth, compact, luma, n_threads, dev)

@@ -5,15 +5,16 @@ JAX package names for this system. Frames are extracted into a persistent
 database (`io.database.DescriptorDB`) and new frames are matched against
 all of it (loop closure, retrieval), with BFMatcher(NORM_L2, crossCheck)
 semantics over the concatenated database. Extraction runs the port's
-`extract_batch` / `extract` (the main path's CUDA kernels on the card) and
-matching its dense single-device matcher (`ops.matcher`, the train rows in
-chunks). The JAX package's `mesh=` ring path is not ported: a caller who
-passes one gets a TypeError.
+`extract_batch` / `extract` (the main path's CUDA kernels on the card);
+matching runs the dense single-device matcher (`ops.matcher`, the train
+rows in chunks) or, given a mesh, the ring matcher (`parallel.ring`: the
+database sharded over the mesh's ranks, streamed round the ring). Results
+are identical.
 
     idx = DescriptorIndex(device="cuda")
     idx.add_frames(frame_batch)                  # extract + index
     m = idx.query(desc_q)                        # global best matches
-    idx.save("/data/db"); DescriptorIndex.load("/data/db")
+    idx.save("/data/db"); DescriptorIndex.load("/data/db", mesh=mesh)
 """
 
 from __future__ import annotations
@@ -41,13 +42,29 @@ class QueryResult:
 
 class DescriptorIndex:
     """Queryable descriptor index with host-side persistence. The database
-    lives on the host; extraction and matching run on `device` (the card
-    unless the caller asks for the CPU). The database's descriptors go to
-    the device once per mutation of the database, not once per query."""
+    lives on the host; extraction and matching run on `device` (the
+    mesh's device with a mesh, else the card unless the caller asks for the
+    CPU). The database's descriptors go to the device once per mutation of
+    the database, not once per query.
 
-    def __init__(self, db: DescriptorDB | None = None, *,
-                 device: str | torch.device = "cuda"):
-        self.device = resolve_device(device)
+    mesh: an optional parallel.mesh.Mesh; queries then run the ring matcher
+    over its `axis_name` ranks (every rank of the mesh queries together),
+    u8 descriptors on the wire. A device that differs from the mesh's
+    raises ValueError."""
+
+    def __init__(self, db: DescriptorDB | None = None, mesh=None,
+                 axis_name: str = "data", *,
+                 device: str | torch.device | None = None):
+        if mesh is not None and device is not None:
+            from .parallel.mesh import rank_device
+
+            if rank_device(device) != mesh.device:
+                raise ValueError(f"device {device} differs from the mesh's "
+                                 f"{mesh.device}")
+        self.mesh = mesh
+        self.axis_name = axis_name
+        self.device = (mesh.device if mesh is not None
+                       else resolve_device(device or "cuda"))
         self.db = db if db is not None else DescriptorDB.empty()
         self._row_maps_cache = None
         self._train_cache = None
@@ -110,11 +127,18 @@ class DescriptorIndex:
         if len(self.db.descriptors) == 0 or len(desc_q) == 0:
             z = np.zeros(0, np.int64)
             return QueryResult(z, z, z, np.zeros(0, np.float32))
-        m = match_brute_force(self._train(), desc_q, cross_check,
-                              device=self.device)
+        if self.mesh is not None:
+            from .parallel.ring import ring_match
+
+            qi, ti, dist = ring_match(self.db.descriptors, desc_q, self.mesh,
+                                      self.axis_name, cross_check)
+        else:
+            m = match_brute_force(self._train(), desc_q, cross_check,
+                                  device=self.device)
+            qi, ti, dist = m.query_idx, m.train_idx, m.distance
         row_frame, row_kp = self._row_maps()
-        return QueryResult(m.query_idx, row_frame[m.train_idx],
-                           row_kp[m.train_idx], m.distance.astype(np.float32))
+        return QueryResult(qi.astype(np.int64), row_frame[ti], row_kp[ti],
+                           dist.astype(np.float32))
 
     def query_image(self, img_u8, config: SiftConfig = DEFAULT_CONFIG,
                     features_limit: int | None = None,
@@ -128,11 +152,16 @@ class DescriptorIndex:
 
     # --- persistence ------------------------------------------------------
 
-    def save(self, directory: str, n_shards: int = 1) -> None:
-        """Frame-contiguous .npz shards, one per serving host."""
+    def save(self, directory: str, n_shards: int | None = None) -> None:
+        """Frame-contiguous .npz shards, one per serving host; n_shards
+        defaults to the mesh's axis size, or 1."""
+        if n_shards is None:
+            n_shards = (self.mesh.shape[self.axis_name]
+                        if self.mesh is not None else 1)
         self.db.save_sharded(directory, n_shards)
 
     @classmethod
-    def load(cls, directory: str, *,
-             device: str | torch.device = "cuda") -> "DescriptorIndex":
-        return cls(DescriptorDB.load_all(directory), device=device)
+    def load(cls, directory: str, mesh=None, axis_name: str = "data", *,
+             device: str | torch.device | None = None) -> "DescriptorIndex":
+        return cls(DescriptorDB.load_all(directory), mesh, axis_name,
+                   device=device)

@@ -1004,8 +1004,8 @@ def test_stream_pinned_rotation_on_card(dev):
     copy_done's event has completed (producer_rotates, depth=2), and a
     producer that rewrites one pageable buffer at once (the snapshot
     path); also with window_kernel="perkey", whose extraction takes no
-    host sync of its own. compact=False: the native output tier, which
-    compaction needs, may not build on the card's machine."""
+    host sync of its own. The default compact=True: the compaction needs no
+    native tier."""
     import dataclasses
 
     from sift_features_tpu_torch.parallel.stream import stream_extract
@@ -1025,7 +1025,7 @@ def test_stream_pinned_rotation_on_card(dev):
                 yield pinned
 
         _check_stream(stream_extract(rotating(), cfg, depth=2,
-                                     compact=False, producer_rotates=True,
+                                     producer_rotates=True,
                                      device=dev, copy_done=events.append),
                       want)
         assert len(events) == 3
@@ -1038,6 +1038,8 @@ def test_stream_pinned_rotation_on_card(dev):
 
         _check_stream(stream_extract(reusing(), cfg, depth=2, compact=False,
                                      device=dev), want)
+        _check_stream(stream_extract(reusing(), cfg, depth=2, device=dev),
+                      want)
 
 
 def test_stream_paths_on_card(dev, tmp_path):
@@ -1065,3 +1067,61 @@ def test_stream_paths_on_card(dev, tmp_path):
     _check_stream(stream_extract_paths(paths, 2, (96, 128), depth=2,
                                        device=dev),
                   _stream_reference(dev, decoded, 2))
+
+
+def test_one_rank_nccl_step_on_card(dev):
+    """extract_match_step on a one-rank NCCL group at 240 x 320 (B=2):
+    its extraction equals extract_batch's, its matches the tagged dense
+    reference, and its ring launches no collective."""
+    import socket
+
+    import torch.distributed as dist
+
+    from sift_features_tpu_torch.models import extractor
+    from sift_features_tpu_torch.parallel import mesh as tmesh
+    from sift_features_tpu_torch.parallel import pipeline, ring
+    from sift_features_tpu_torch.parallel.runner import init_distributed
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert init_distributed(f"127.0.0.1:{port}", 1, 0, device=dev) == 0
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = tmesh.make_mesh(device=dev)
+        frames = smooth_images(5, 2, 240, 320)
+        n_oct = extractor._n_octaves(240, 320, CFG)
+        for limit in (None, 300):
+            got = pipeline.extract_match_step(frames, n_oct, CFG, mesh, 128,
+                                              limit)
+            want = extractor.extract_batch(frames, CFG, limit, device=dev)
+            for k in ("kps", "desc", "valid", "n_candidates", "n_survivors",
+                      "n_emitted"):
+                assert torch.equal(got[k], want[k]), k
+            _, q, qv, qt, t, tv, tt = pipeline.queries_and_database(got, 0, 128)
+            ref = ring.match_tagged_dense(t, tv, tt, q, qv, qt)
+            for k, r in zip(("match_train", "match_dist", "match_keep"), ref):
+                assert torch.equal(got[k].reshape(-1), r), k
+            assert int(got["match_keep"].sum()) > 20
+    finally:
+        dist.destroy_process_group()
+
+
+def test_int8_matcher_on_card(dev, monkeypatch):
+    """SIFT_INT8_MATCH=1 on the card (torch._int_mm) equals the f64 path
+    bit for bit, in one chunk and in chunks whose last one is padded, with
+    a query of fewer than 17 rows (padded for _int_mm) and of many."""
+    from sift_features_tpu_torch.ops import matcher
+
+    rng = np.random.RandomState(6)
+    train = torch.from_numpy(rng.randint(0, 256, (1003, 128)).astype(np.uint8)).to(dev)
+    for n_q in (5, 300):
+        query = torch.from_numpy(rng.randint(0, 256, (n_q, 128)).astype(np.uint8)).to(dev)
+        query[:3] = train[[7, 500, 1002]]
+        for temp in (matcher.TEMP_BYTES, 4 * n_q * 200):
+            monkeypatch.setattr(matcher, "TEMP_BYTES", temp)
+            for cc in (True, False):
+                a = matcher.match_dense(train, query, cc)
+                b = matcher.match_dense(train, query, cc, int8=True)
+                for x, y in zip(a, b):
+                    assert torch.equal(x, y)

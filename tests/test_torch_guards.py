@@ -54,6 +54,21 @@ def test_entry_points_need_the_card(monkeypatch):
         port.descriptor_index()
     with pytest.raises(RuntimeError, match="CUDA"):
         DescriptorIndex()
+    from sift_features_tpu_torch.parallel import (extract_match_step,
+                                                  make_mesh, ring_match)
+    from sift_features_tpu_torch.parallel.runner import init_distributed
+
+    d = np.zeros((4, 128), np.uint8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ring_match(d, d)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        extract_match_step(img[None], 1, CFG)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_distributed()
+    assert init_distributed(device="cpu") == 0
+    assert len(ring_match(d, d, make_mesh(device="cpu"))[0]) == 1
     assert port.descriptor_index(device="cpu").device.type == "cpu"
     kps, desc = port.sift(img, device="cpu")
     assert kps.shape == (0, 5) and desc.shape == (0, 128)
@@ -90,7 +105,8 @@ def test_wrappers_never_fall_back():
 
 
 def test_unported_paths_raise(one_torch_thread):
-    """Unknown mode names raise ValueError at the entry points. Every
+    """Unknown mode names raise ValueError at the entry points, and the
+    spatial mesh (space > 1) NotImplementedError. Every
     storage mode runs through extract_batch, with and without
     features_limit; the entry points that ignore the storage modes, as the
     JAX package's do (_extract_single, precompute and
@@ -98,6 +114,12 @@ def test_unported_paths_raise(one_torch_thread):
     import dataclasses
 
     img = smooth_images(3, 1, 32, 32)
+    from sift_features_tpu_torch.parallel import extract_match_step, make_mesh
+
+    mesh = dataclasses.replace(make_mesh(device="cpu"),
+                               shape={"data": 1, "space": 2})
+    with pytest.raises(NotImplementedError, match="Queue A item 3"):
+        extract_match_step(img, 1, CFG, mesh)
     for field, value in (("storage_dtype", "float16"),
                          ("gather_dtype", "split"), ("refine_mode", "walks")):
         cfg = dataclasses.replace(CFG, **{field: value})

@@ -156,6 +156,52 @@ def test_compact_batch_matches_jax():
         np.testing.assert_array_equal(gd, dd[v])
 
 
+def test_stream_compaction_needs_no_output_tier(monkeypatch, tmp_path,
+                                                one_torch_thread):
+    """With the native output tier unable to build, the stream's default
+    compact=True still yields per-frame pairs, byte-equal to JAX
+    compact_batch and to JAX _fetch's NumPy branch on the same padded
+    results; compact_frames likewise on a synthetic batch with an empty and
+    a full frame."""
+    from sift_features_tpu.parallel import stream as jstream
+    from sift_features_tpu_torch.io import native_build
+    from sift_features_tpu_torch.parallel.stream import (compact_frames,
+                                                         stream_extract)
+
+    monkeypatch.setattr(native_build, "BUILD_DIR", str(tmp_path / "out"))
+    broken = tmp_path / "broken.cpp"
+    broken.write_text("int main( {\n")
+    monkeypatch.setattr(native_output, "_lib", None)
+    monkeypatch.setattr(native_output, "SOURCE", str(broken))
+    frames = smooth_images(3, 1, 32, 32)
+    [pairs] = list(stream_extract(iter([frames]), device="cpu"))
+    [host] = list(stream_extract(iter([frames]), compact=False, device="cpu"))
+    with pytest.raises(native_output.NativeOutputUnavailable):
+        native_output._get_lib()
+    rng = np.random.RandomState(2)
+    valid = rng.rand(3, 57) > 0.5
+    valid[1], valid[2] = False, True
+    synthetic = {"kps": rng.rand(3, 57, 5).astype(np.float32),
+                 "desc": (rng.rand(3, 57, 128) * 255).astype(np.uint8),
+                 "valid": valid}
+    cases = [(pairs, host), (compact_frames(synthetic), synthetic)]
+    wants = [joutput.compact_batch(h["kps"], h["desc"], h["valid"])
+             for _, h in cases]
+
+    def unavailable(*a, **kw):
+        raise joutput.NativeOutputUnavailable("not built")
+
+    monkeypatch.setattr(joutput, "compact_batch", unavailable)
+    for (got, h), want in zip(cases, wants):
+        numpy_branch = jstream._fetch(h, len(h["valid"]), True)
+        assert len(got) == len(want) == len(numpy_branch)
+        for (gk, gd), (wk, wd), (nk, nd) in zip(got, want, numpy_branch):
+            assert gk.dtype == wk.dtype == np.float32 and gd.dtype == np.uint8
+            assert gk.tobytes() == wk.tobytes() == nk.tobytes()
+            assert gd.tobytes() == wd.tobytes() == nd.tobytes()
+    assert sum(len(k) for k, _ in pairs) > 0
+
+
 def test_render_matches_and_write_jpeg_match_jax(tmp_path):
     rng = np.random.RandomState(1)
     img1 = (rng.rand(60, 80) * 255).astype(np.uint8)
@@ -285,15 +331,17 @@ def test_failed_native_build_raises(monkeypatch, tmp_path, module, error):
             native_output.compact_batch(np.zeros((1, 1, 5), np.float32),
                                         np.zeros((1, 1, 128), np.uint8),
                                         np.ones((1, 1), bool))
-    # the stream needs the tier at the call, before it reads a batch
+    # the stream needs the decode tier at the call, before it reads a
+    # batch; its compaction needs no native tier
     from sift_features_tpu_torch.parallel.stream import (stream_extract,
                                                          stream_extract_paths)
 
-    with pytest.raises(exc, match="error"):   # compaction needs the output tier
-        stream_extract_paths([str(broken)], 1, (8, 8),
-                             compact=module == "native_output", device="cpu")
-    if module == "native_output":
+    if module == "native_loader":
         with pytest.raises(exc, match="error"):
-            stream_extract(iter(()), device="cpu")
-        assert list(stream_extract(iter(()), compact=False, device="cpu")) == []
+            stream_extract_paths([str(broken)], 1, (8, 8), device="cpu")
+    else:
+        stream_extract_paths([str(broken)], 1, (8, 8), device="cpu")
+        for compact in (True, False):
+            assert list(stream_extract(iter(()), compact=compact,
+                                       device="cpu")) == []
     assert not any(f.endswith(".so") for f in os.listdir(tmp_path / "out"))

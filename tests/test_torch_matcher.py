@@ -135,3 +135,46 @@ def test_matcher_under_tf32_switches(state):
         torch.backends.fp32_precision = saved_global
         torch.backends.cuda.matmul.fp32_precision = saved_matmul
     assert _switches() == before_all
+
+
+@pytest.mark.parametrize("chunk_rows", [None, 96])
+def test_int8_matcher_matches_jax(monkeypatch, chunk_rows):
+    """SIFT_INT8_MATCH=1, read at each call: on u8 x u8 the int8 path
+    (torch._int_mm) equals the default f64 path and JAX `_match_jit(...,
+    int8=True)` bit for bit, with and without the cross-check, in one chunk
+    and in chunks of 96 train rows (the last one 12 rows: padded to 16 for
+    _int_mm); f32 input ignores the variable, as in JAX."""
+    from sift_features_tpu_torch.ops import matcher
+
+    train, query = _u8_case()
+    t, q = torch.from_numpy(train), torch.from_numpy(query)
+    if chunk_rows is not None:
+        monkeypatch.setattr(matcher, "TEMP_BYTES", chunk_rows * 4 * len(query))
+    for cc in (True, False):
+        default = match_dense(t, q, cc)
+        int8 = match_dense(t, q, cc, int8=True)
+        for a, b in zip(int8, default):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        jbt, jdist, jkeep = (np.asarray(x) for x in _match_jit(
+            jnp.asarray(train), jnp.asarray(query), cc, True))
+        np.testing.assert_array_equal(int8[0].numpy(), jbt)
+        assert int8[1].numpy().tobytes() == jdist.tobytes()
+        np.testing.assert_array_equal(int8[2].numpy(), jkeep)
+        monkeypatch.setenv("SIFT_INT8_MATCH", "1")
+        calls = []
+        real = matcher._chunk_d2_int8
+        monkeypatch.setattr(matcher, "_chunk_d2_int8",
+                            lambda *a: calls.append(1) or real(*a))
+        m = match_brute_force(train, query, cc, device="cpu")
+        assert len(calls) == (1 if chunk_rows is None else 4)
+        np.testing.assert_array_equal(m.train_idx, jbt[m.query_idx])
+        assert m.distance.tobytes() == jdist[m.query_idx].tobytes()
+        f32 = match_brute_force(train.astype(np.float32),
+                                query.astype(np.float32), cc, device="cpu")
+        assert len(calls) == (1 if chunk_rows is None else 4)
+        for f in ("query_idx", "train_idx", "distance"):
+            np.testing.assert_array_equal(getattr(f32, f), getattr(m, f))
+        monkeypatch.setenv("SIFT_INT8_MATCH", "0")
+        monkeypatch.setattr(matcher, "_chunk_d2_int8", real)
+        assert match_brute_force(train, query, cc, device="cpu") \
+            .distance.tobytes() == m.distance.tobytes()

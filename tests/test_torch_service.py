@@ -14,6 +14,8 @@ the CPU (no interpret-mode compile; the JAX matcher compiles in seconds):
 - the empty index and the empty query.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -187,8 +189,10 @@ def test_add_frames_and_query_image_on_cpu(tmp_path):
 
 def test_empty_index_and_empty_query(tmp_path):
     """An empty index answers every query with nothing, a query of no rows
-    gets nothing, an empty index saves and loads, and a mesh argument (the
-    ring path is not ported) raises TypeError."""
+    gets nothing, an empty index saves and loads; an index on a one-rank
+    mesh (the ring path) answers as the dense one, loads with the mesh, and
+    refuses a device other than the mesh's (tests/test_torch_parallel.py
+    holds the ring on three ranks)."""
     res, ids, q = _synthetic()
     empty = DescriptorIndex(device="cpu")
     full = DescriptorIndex(device="cpu")
@@ -203,7 +207,18 @@ def test_empty_index_and_empty_query(tmp_path):
     back = DescriptorIndex.load(str(tmp_path), device="cpu")
     _assert_db_equal(back.db, DescriptorDB.empty())
     assert len(back.query(q).query_idx) == 0
-    with pytest.raises(TypeError):
-        DescriptorIndex(None, object())
-    with pytest.raises(TypeError):
-        DescriptorIndex.load(str(tmp_path), mesh=object())
+    from sift_features_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(device="cpu")
+    ring = DescriptorIndex(None, mesh)
+    ring.add_batch_result(_as_torch(res), frame_ids=ids)
+    assert ring.device == mesh.device
+    _assert_result_equal(ring.query(q), full.query(q))
+    ring.save(str(tmp_path / "ring"))          # one shard: the axis size
+    assert sorted(os.listdir(tmp_path / "ring")) == ["shard_00000.npz"]
+    back = DescriptorIndex.load(str(tmp_path / "ring"), mesh)
+    assert back.mesh is mesh
+    _assert_result_equal(back.query(q, False), full.query(q, False))
+    assert DescriptorIndex(None, mesh, device="cpu").device == mesh.device
+    with pytest.raises(ValueError, match="differs from the mesh"):
+        DescriptorIndex(None, mesh, device="meta")
