@@ -43,7 +43,12 @@ Phases (any failure stops the script with a non-zero exit):
      extract_batch's row for that frame;
   7. split: precompute + extract_with_precomputed on frame 0 against
      extract_batch's row, kps within 1e-4 and descriptor bytes within 1;
-  8. card against CPU on one small seeded image;
+  8. card against CPU on one small seeded image; the port's NumPy oracle
+     (oracle.sift, NumpyProcessing) against sift on the card at
+     tests/test_fuzz.py's bar on that test's four image shapes, with both
+     times, and octave by octave on the small image, whose octave 1 (and
+     no other) must overflow the extractor's capacities: there the card's
+     rows are held against the oracle's first rows;
   9. refine_mode="step" (K4) against the default walk (K3) on that image;
   10. modes: the main step with refine_mode="region" (K10 then K4), "tile"
       (K11, escapes re-refined by K4) and window_kernel="perkey" (K8, K7),
@@ -111,7 +116,19 @@ Phases (any failure stops the script with a non-zero exit):
       gated, their wall times and bytes per hop. (c) SIFT_INT8_MATCH=1:
       gated, the main step's matching of u8 rows equal to the f64 path's;
       not gated, both times, and phase 12's 2.2M-row query (int8 against
-      f64, with its peaks, run in phase 12);
+      f64, with its peaks, run in phase 12). (d) The same two ranks as a
+      data=1 x space=2 mesh: extract_match_step of the four frames on the
+      spatial path (octaves 0-2 row-sharded, halo-exchange blurs,
+      detection by row band), without and with features_limit=2048;
+      gated: per frame the keypoint set and the counters byte-equal to
+      the split path's on the card (precompute + extract_with_precomputed:
+      the same reflect-101 blur chain), the keypoint count equal to (a)'s,
+      the budget holding the unbudgeted step's top-2048 with its rows'
+      bytes, the matches equal to the tagged dense reference, K2′ never
+      launched and K3, K5′ and K6′ at least once per sharded octave and
+      frame; not gated, first and warm step times, halo hops and bytes per
+      hop, bytes gathered over space, the largest gather's time, peak
+      memory per rank;
   15. K5's probe lines, not gated: K5 with every lane dead and with its
       per-sample math replaced by constants (probes/: a copy of its
       kernel), by CUDA events around the wrapper and by device time (the
@@ -1194,6 +1211,128 @@ def split_phase(torch, extractor, frames, res_full, cfg, dev):
         raise SystemExit("chip_smoke: split path disagrees with extract_batch")
 
 
+# tests/test_fuzz.py's seeds and shapes
+FUZZ_IMAGES = ((0, 64, 96), (1, 97, 65), (2, 80, 80), (3, 51, 127))
+
+
+def fuzz_image(seed: int, h: int, w: int) -> np.ndarray:
+    """A seeded smooth texture as tests/test_fuzz.py draws it (noise on a
+    coarse grid, cubic zoom through scipy in place of cv2's resize)."""
+    from scipy.ndimage import zoom
+
+    base = np.random.RandomState(seed).rand(h // 4 + 2, w // 4 + 2)
+    img = zoom(base, (h / base.shape[0], w / base.shape[1]), order=3)
+    return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
+def oracle_rows(img: np.ndarray, cfg):
+    """The port's NumPy oracle (oracle.sift with NumpyProcessing, step by
+    step) on img: keypoints (N, 5), descriptors (N, 128) u8 and the octave
+    of each row."""
+    from sift_features_tpu_torch.oracle import oracle as orc
+    from sift_features_tpu_torch.oracle.processing import NumpyProcessing
+
+    seed = orc.create_seed_image(img, NumpyProcessing, cfg)
+    ss = orc.build_gaussian_scale_space(seed, cfg.n_octaves(*seed.shape),
+                                        NumpyProcessing, cfg)
+    kps = orc.find_keypoints(ss, orc.build_dog(ss), cfg)
+    d = np.float32(cfg.delta_min)
+    rows = np.asarray([[k.x * d, k.y * d, k.size * d, k.angle, k.response]
+                       for k in kps], np.float32).reshape(-1, 5)
+    return (rows, orc.compute_descriptors(ss, kps, cfg),
+            np.asarray([k.octave for k in kps], np.int64))
+
+
+def oracle_errors(kc, dc, ko, do):
+    """(max x/y/size/response diff, max angle diff in degrees, share of
+    descriptor rows byte-equal) of the card's rows against the oracle's."""
+    f_err = float(np.abs(kc[:, [0, 1, 2, 4]] - ko[:, [0, 1, 2, 4]]).max())
+    dang = np.abs(kc[:, 3] - ko[:, 3])
+    a_err = float(np.minimum(dang, 360 - dang).max())
+    return f_err, a_err, float((dc == do).all(1).mean())
+
+
+def oracle_check(small: np.ndarray, res: dict, cfg) -> None:
+    """The port's NumPy oracle (oracle.sift with NumpyProcessing) against
+    sift on the card at the JAX package's extractor-to-oracle bar
+    (tests/test_fuzz.py): equal counts; x, y, size and response within
+    2e-3; angles within 0.5 degrees; >= 90% of descriptor rows byte-exact.
+    On that test's four image shapes, whole images. On the 240 x 320 small
+    image (res: extract_batch of it on the card), octave by octave: octave
+    1 overflows the extractor's capacities (candidates 670 > 512, survivors
+    > 256; the sizing rule of octave_capacities, the JAX package's), which
+    keeps the first rows in scan order where the oracle keeps every one.
+    So every octave within its capacities is held to the bar, and the
+    overflowing one, which must be octave 1 and no other, has fewer rows
+    than the oracle's, held to the bar against the oracle's first rows."""
+    import sift_features_tpu_torch as port
+    from sift_features_tpu_torch.models.extractor import octave_capacities
+    from sift_features_tpu_torch.oracle import sift as oracle_sift
+    from sift_features_tpu_torch.oracle.processing import NumpyProcessing
+
+    oracle_s = card_s = 0.0
+    n, errs = [], []
+    for seed, h, w in FUZZ_IMAGES:
+        img = fuzz_image(seed, h, w)
+        t0 = time.perf_counter()
+        ko, do = oracle_sift(img, proc=NumpyProcessing)
+        oracle_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        kc, dc = port.sift(img, device="cuda")
+        card_s += time.perf_counter() - t0
+        if len(kc) != len(ko) or len(kc) < 20:
+            raise SystemExit(f"chip_smoke: oracle: {h}x{w}: {len(ko)} "
+                             f"keypoints, the card {len(kc)}")
+        n.append(len(kc))
+        errs.append(oracle_errors(kc, dc, ko, do))
+
+    t0 = time.perf_counter()
+    ko, do, octs = oracle_rows(small, cfg)
+    small_s = time.perf_counter() - t0
+    valid, kps, desc = (res[k][0].cpu().numpy() for k in ("valid", "kps", "desc"))
+    h, w = small.shape[0] * cfg.inv_delta_min, small.shape[1] * cfg.inv_delta_min
+    off, over, per_octave = 0, [], []
+    for o in range(res["n_candidates"].shape[1]):
+        caps = octave_capacities(h, w, cfg)
+        counts = [int(res[c][0, o]) for c in ("n_candidates", "n_survivors",
+                                               "n_emitted")]
+        v = valid[off:off + caps[2]]
+        kc, dc = kps[off:off + caps[2]][v], desc[off:off + caps[2]][v]
+        ko_o, do_o = ko[octs == o], do[octs == o]
+        off, h, w = off + caps[2], h // 2, w // 2
+        per_octave.append((len(kc), len(ko_o)))
+        if any(c > cap for c, cap in zip(counts, caps)):
+            over.append(o)
+            print(f"[oracle] {SMALL[0]}x{SMALL[1]} octave {o}: candidates / "
+                  f"survivors / emitted {counts} against capacities "
+                  f"{list(caps)}; the card {len(kc)} keypoints, the oracle "
+                  f"{len(ko_o)}", flush=True)
+            if len(kc) >= len(ko_o):
+                raise SystemExit(f"chip_smoke: oracle: octave {o} overflows "
+                                 "but keeps every oracle keypoint")
+        elif len(kc) != len(ko_o):
+            raise SystemExit(f"chip_smoke: oracle: octave {o}: {len(ko_o)} "
+                             f"keypoints, the card {len(kc)}")
+        if len(kc):
+            errs.append(oracle_errors(kc, dc, ko_o[:len(kc)], do_o[:len(kc)]))
+    if off != valid.shape[0] or over != [1]:
+        raise SystemExit(f"chip_smoke: oracle: octaves {over} overflow on the "
+                         f"small image (expected [1]); {off} rows of "
+                         f"{valid.shape[0]} read")
+    f_err, a_err = max(e[0] for e in errs), max(e[1] for e in errs)
+    rows_eq = min(e[2] for e in errs)
+    print(f"[oracle] tests/test_fuzz.py's {len(FUZZ_IMAGES)} images: oracle.sift "
+          f"(NumpyProcessing) {n} keypoints in {oracle_s:.2f} s, sift on the "
+          f"card {card_s:.3f} s (first calls); {SMALL[0]}x{SMALL[1]}: the "
+          f"oracle {len(ko)} keypoints in {small_s:.2f} s, the card "
+          f"{sum(c for c, _ in per_octave)}, (card, oracle) per octave "
+          f"{per_octave}; all: max x/y/size/response diff {f_err:.3g}, max "
+          f"angle diff {a_err:.3g} deg, descriptor rows byte-equal "
+          f"{rows_eq:.4f} at least", flush=True)
+    if f_err > 2e-3 or a_err >= 0.5 or rows_eq < 0.9:
+        raise SystemExit("chip_smoke: the card disagrees with the oracle")
+
+
 # mode -> (SiftConfig fields, kernels it must launch, kernels it replaces).
 # region_steps defaults to max_interpolation_steps: every step is K10's
 MODES = {"region": ({"refine_mode": "region"}, ("K10",), ("K3",)),
@@ -2203,6 +2342,172 @@ def check_step(torch, got: dict, want: dict, what: str) -> int:
     return kept
 
 
+def canon_rows(kps, desc, valid) -> np.ndarray:
+    """A frame's valid rows [kps | desc], sorted: its keypoint set."""
+    comb = np.concatenate([kps[valid], desc[valid].astype(np.float32)], 1)
+    return comb[np.lexsort(comb.T[::-1])]
+
+
+def check_matches_dense(torch, got: dict, what: str) -> int:
+    """A step's matches (numpy) byte-equal to the tagged dense reference on
+    the card, run on the step's own queries and rows. Returns the kept
+    matches."""
+    from sift_features_tpu_torch.parallel import pipeline, ring
+
+    t = {k: torch.from_numpy(got[k]).cuda() for k in ("kps", "desc", "valid")}
+    _, q, qv, qt, tr, tv, tt = pipeline.queries_and_database(
+        t, 0, got["query_idx"].shape[1])
+    for k, r in zip(("match_train", "match_dist", "match_keep"),
+                    ring.match_tagged_dense(tr, tv, tt, q, qv, qt)):
+        if got[k].reshape(-1).tobytes() != r.cpu().numpy().tobytes():
+            raise SystemExit(f"chip_smoke: dist (d): {what}: {k} differs from "
+                             f"the tagged dense reference")
+    return int(got["match_keep"].sum())
+
+
+def check_spatial(torch, got: dict, z) -> int:
+    """Phase 14 (d): the spatial extract_match_step result (numpy) against
+    the split path's rows (z["split_*"]: the plain reflect-101 blur chain,
+    which the halo blurs compute): per frame the same keypoint set byte for
+    byte and the same counters; against the one-rank step (z["step_*"],
+    whose K1 blurs the padded plane) the same count of keypoints a frame,
+    phase 7's rule; the matches byte-equal to the tagged dense reference.
+    Returns the kept matches."""
+    for f in range(got["valid"].shape[0]):
+        a = canon_rows(got["kps"][f], got["desc"][f], got["valid"][f])
+        b = canon_rows(z["split_kps"][f], z["split_desc"][f],
+                       z["split_valid"][f])
+        if a.shape != b.shape or a.tobytes() != b.tobytes():
+            raise SystemExit(f"chip_smoke: dist (d): frame {f}: {len(a)} rows, "
+                             f"not the split path's {len(b)}")
+    for k in ("n_candidates", "n_survivors", "n_emitted"):
+        if not np.array_equal(got[k], z[f"split_{k}"]):
+            raise SystemExit(f"chip_smoke: dist (d): {k} differs from the "
+                             f"split path's")
+    n_got, n_one = got["valid"].sum(1), z["step_valid"].sum(1)
+    if not np.array_equal(n_got, n_one):
+        raise SystemExit(f"chip_smoke: dist (d): keypoints a frame "
+                         f"{n_got.tolist()}, the one-rank step {n_one.tolist()}")
+    return check_matches_dense(torch, got, "spatial step")
+
+
+def check_spatial_budget(full: dict, lim: dict, limit: int) -> None:
+    """The spatial budget against the unbudgeted spatial step (the rule of
+    tests/test_parallel.py:test_extract_match_step_budget): per frame the
+    same response set as its top-`limit`, each kept row's keypoint and
+    descriptor bytes those of its row there, the same counters."""
+    if lim["kps"].shape[1] != min(limit, full["kps"].shape[1]):
+        raise SystemExit(f"chip_smoke: dist (d): budget rows {lim['kps'].shape}")
+    for k in ("n_candidates", "n_survivors", "n_emitted"):
+        if not np.array_equal(lim[k], full[k]):
+            raise SystemExit(f"chip_smoke: dist (d): budget {k} differs")
+    for f in range(full["valid"].shape[0]):
+        resp = np.where(full["valid"][f], full["kps"][f][:, 4], -np.inf)
+        order = np.argsort(-resp, kind="stable")[:limit]
+        order = order[resp[order] > -np.inf]
+        kept = lim["valid"][f]
+        if kept.sum() != len(order) or not np.array_equal(
+                np.sort(lim["kps"][f][kept][:, 4]),
+                np.sort(full["kps"][f][order][:, 4])):
+            raise SystemExit(f"chip_smoke: dist (d): frame {f}: the budget's "
+                             f"responses are not the top-{limit}")
+        rows = {full["kps"][f][i].tobytes(): full["desc"][f][i].tobytes()
+                for i in order}
+        for kp, d in zip(lim["kps"][f][kept], lim["desc"][f][kept]):
+            if rows.get(kp.tobytes()) != d.tobytes():
+                raise SystemExit(f"chip_smoke: dist (d): frame {f}: a kept "
+                                 f"row differs from its unbudgeted row")
+
+
+def spatial_child(torch, z, n_oct: int, cfg) -> dict:
+    """Phase 14 (d) on one rank: extract_match_step on a (data=1, space=2)
+    mesh of the two ranks (octaves 0-2 of the 1080p seed row-sharded with
+    halo-exchange blurs, detection by row band), first and warm without a
+    limit and with features_limit=BUDGET, each checked; on the warm steps
+    the launches, halo hops and bytes, bytes gathered over space and peak
+    memory; then one more unbudgeted step with each gather and hop inside
+    _extract_single_spatial timed (host clock, each call synchronised)."""
+    from sift_features_tpu_torch.ops.kernels import build
+    from sift_features_tpu_torch.parallel import extract as textract
+    from sift_features_tpu_torch.parallel import halo, pipeline
+    from sift_features_tpu_torch.parallel import mesh as tmesh
+    from sift_features_tpu_torch.parallel.runner import barrier
+
+    smesh = tmesh.make_mesh(1, DIST_RANKS, device="cuda")
+    frames = z["frames"]
+    out = {"mesh": smesh.shape, "space_rank": smesh.coords["space"]}
+
+    def step(limit):
+        got = pipeline.extract_match_step(frames, n_oct, cfg, smesh, 128, limit)
+        torch.cuda.synchronize()
+        return got
+
+    runs = {}
+    for limit in (None, BUDGET):
+        name = "spatial" if limit is None else "spatial_budget"
+        barrier(f"{name} first", 120.0)
+        t0 = time.perf_counter()
+        step(limit)
+        first_s = time.perf_counter() - t0
+        barrier(f"{name} warm", 120.0)
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        base = dict(tmesh.TRAFFIC)
+        t0 = time.perf_counter()
+        got = step(limit)
+        warm_s = time.perf_counter() - t0
+        traffic = {k: tmesh.TRAFFIC[k] - base[k] for k in base}
+        got = {k: v.cpu().numpy() for k, v in got.items()}
+        runs[name] = got
+        out[name] = {
+            "first_s": first_s, "warm_s": warm_s,
+            "launches": dict(build.LAUNCHES),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "halo_hops": traffic["hops_space"],
+            "halo_bytes_per_hop": (traffic["hop_bytes_space"]
+                                   / max(traffic["hops_space"], 1)),
+            "space_gather_bytes": traffic["gather_bytes_space"],
+            "psums": traffic["reduces_space"]}
+    out["kept"] = check_spatial(torch, runs["spatial"], z)
+    check_spatial_budget(runs["spatial"], runs["spatial_budget"], BUDGET)
+    out["kept_budget"] = check_matches_dense(
+        torch, runs["spatial_budget"], f"features_limit={BUDGET}")
+
+    timed = {"gather": [], "hop": [], "wire": []}
+
+    def timer(fn, acc):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            acc.append(((time.perf_counter() - t0) * 1e3,
+                        r.numel() * r.element_size(), list(r.shape)))
+            return r
+        return wrapped
+
+    saved = textract.all_gather, halo.shift, tmesh._wire
+    textract.all_gather = timer(saved[0], timed["gather"])
+    halo.shift = timer(saved[1], timed["hop"])
+    # _wire: the copy of what a collective sends into fresh pinned memory
+    tmesh._wire = timer(saved[2], timed["wire"])
+    barrier("spatial timed", 120.0)
+    try:
+        t0 = time.perf_counter()
+        step(None)
+        out["timed_step_s"] = time.perf_counter() - t0
+    finally:
+        textract.all_gather, halo.shift, tmesh._wire = saved
+    big = sorted(timed["gather"], key=lambda e: -e[1])
+    out["largest_gathers"] = [{"ms": ms, "bytes": nb, "shape": sh}
+                              for ms, nb, sh in big[:4]]
+    out["gather_ms_total"] = sum(e[0] for e in timed["gather"])
+    out["hop_ms_total"] = sum(e[0] for e in timed["hop"])
+    out["hop_ms_max"] = max((e[0] for e in timed["hop"]), default=0.0)
+    out["wire_ms_total"] = sum(e[0] for e in timed["wire"])
+    out["largest_wire_ms"] = max(timed["wire"], key=lambda e: e[1])[0]
+    return out
+
+
 def dist_child(rank: int, port: int, inputs: str, out: str) -> None:
     """One of phase 14 (b)'s ranks, both on cuda:0 over gloo: ring_match of
     the inputs' query rows against their train rows and extract_match_step
@@ -2265,10 +2570,52 @@ def dist_child(rank: int, port: int, inputs: str, out: str) -> None:
                 raise SystemExit(f"rank {rank}: extract_match_step {k} differs "
                                  f"from the one-rank step's")
         res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        res["spatial"] = spatial_child(torch, z, n_oct, DEFAULT_CONFIG)
         with open(out, "w") as f:
             json.dump(res, f)
     finally:
         dist.destroy_process_group()
+
+
+def spatial_summary(ranks: list, n_oct: int, cfg) -> dict:
+    """Phase 14 (d)'s figures over the ranks (the slowest rank's times, the
+    largest peak), with its launch gate: on each rank K2′ never launched,
+    and K3, K5′ and K6′ at least once per row-sharded octave and frame."""
+    from sift_features_tpu_torch.parallel.extract import shards_rows
+
+    hh = H * cfg.inv_delta_min
+    sharded = [o for o in range(n_oct)
+               if shards_rows(hh >> o, DIST_RANKS, cfg)]
+    floor = len(sharded) * B
+    sp = [r["spatial"] for r in ranks]
+    for r in sp:
+        la = r["spatial"]["launches"]
+        if la.get("K2′") or any(la.get(k, 0) < floor
+                                for k in ("K3", "K5′", "K6′")):
+            raise SystemExit(f"chip_smoke: dist (d): spatial launches {la}, "
+                             f"want K2′ 0 and K3, K5′, K6′ >= {floor}")
+        if r["spatial_budget"]["launches"].get("K2′"):
+            raise SystemExit("chip_smoke: dist (d): K2′ on the budget step")
+    big = sp[0]["largest_gathers"][0]
+    return {
+        "sharded_octaves": sharded, "launch_floor": floor,
+        "launches": sp[0]["spatial"]["launches"],
+        "launches_budget": sp[0]["spatial_budget"]["launches"],
+        "kept": sp[0]["kept"], "kept_budget": sp[0]["kept_budget"],
+        "first_ms": max(r["spatial"]["first_s"] for r in sp) * 1e3,
+        "warm_ms": max(r["spatial"]["warm_s"] for r in sp) * 1e3,
+        "budget_first_ms": max(r["spatial_budget"]["first_s"] for r in sp) * 1e3,
+        "budget_warm_ms": max(r["spatial_budget"]["warm_s"] for r in sp) * 1e3,
+        "halo_hops": sp[0]["spatial"]["halo_hops"],
+        "halo_bytes_per_hop": sp[0]["spatial"]["halo_bytes_per_hop"],
+        "space_gather_bytes": sp[0]["spatial"]["space_gather_bytes"],
+        "largest_gather_mb": big["bytes"] / 1e6, "largest_gather_ms": big["ms"],
+        "timed_step_ms": sp[0]["timed_step_s"] * 1e3,
+        "gather_ms_in_step": sp[0]["gather_ms_total"],
+        "wire_ms_in_step": sp[0]["wire_ms_total"],
+        "largest_wire_ms": sp[0]["largest_wire_ms"],
+        "hop_ms_in_step": sp[0]["hop_ms_total"],
+        "peak_mem_gb": max(r["spatial"]["peak_mem_gb"] for r in sp)}
 
 
 def two_ranks_on_card(torch, inputs: dict, tmp: str) -> list:
@@ -2288,7 +2635,7 @@ def two_ranks_on_card(torch, inputs: dict, tmp: str) -> list:
         for p in procs:
             p.start()
         for p in procs:
-            p.join(timeout=300)
+            p.join(timeout=600)
     finally:
         for p in procs:
             if p.is_alive():
@@ -2428,22 +2775,27 @@ def dist_phase(torch, extractor, cfg, dev, frames, service: dict,
         "int8_median_ms": service["int8_query_median_ms"],
         "int8_peak_mem_gb": service["int8_query_peak_mem_gb"]}
 
-    # (b) two ranks on the one card over gloo
+    # (b) two ranks on the one card over gloo, and (d) the spatial mesh of
+    # the same ranks, against the split path of the four frames on the card
     valid = want["valid"].cpu().numpy()
     train = want["desc"].cpu().numpy()[valid]
     _, query = extractor.extract(service_frames(1, 1)[0], device=dev)
     ref = matcher.match_brute_force(train, query, device=dev)
+    split = extractor.extract_with_precomputed(
+        *extractor.precompute(frames, cfg, device=dev), cfg, device=dev)
     inputs = {"frames": frames, "train": train, "query": query,
               "ring_query_idx": ref.query_idx, "ring_train_idx": ref.train_idx,
               "ring_distance": ref.distance,
-              **{f"step_{k}": v.cpu().numpy() for k, v in got.items()}}
-    del got, want
+              **{f"step_{k}": v.cpu().numpy() for k, v in got.items()},
+              **{f"split_{k}": v.cpu().numpy() for k, v in split.items()}}
+    del got, want, split
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         ranks = two_ranks_on_card(torch, inputs, tmp)
         out["two_ranks_wall_s"] = time.perf_counter() - t0
     out["two_ranks"] = ranks
+    out["spatial"] = spatial_summary(ranks, n_oct, cfg)
     out["ring_rows"] = {"train": int(len(train)), "query": int(len(query))}
     out["phase_s"] = time.perf_counter() - t_phase
     r0 = ranks[0]
@@ -2468,6 +2820,26 @@ def dist_phase(torch, extractor, cfg, dev, frames, service: dict,
           flush=True)
     s8 = out["int8_service_query"]
     m8 = out["int8_main_step"]
+    sp = out["spatial"]
+    print(f"[dist] (d) spatial mesh data=1 x space={DIST_RANKS} on the same "
+          f"ranks: extract_match_step of the {B} frames (octaves "
+          f"{sp['sharded_octaves']} row-sharded), its keypoint sets and "
+          f"counters byte-equal to the split path's, keypoints a frame equal "
+          f"to (a)'s, matches equal to the tagged dense reference "
+          f"({sp['kept']} kept; features_limit={BUDGET}: the top-{BUDGET} of "
+          f"the unbudgeted step, {sp['kept_budget']} kept); step "
+          f"{sp['warm_ms']:.1f} ms (first {sp['first_ms']:.1f}), budget "
+          f"{sp['budget_warm_ms']:.1f} ms (first {sp['budget_first_ms']:.1f}); "
+          f"{sp['halo_hops']} halo hops a rank, {sp['halo_bytes_per_hop']:.0f} "
+          f"bytes a hop; {sp['space_gather_bytes']} bytes gathered over space a "
+          f"rank (the space axis's gathers alone); in one timed step ({sp['timed_step_ms']:.1f} ms, each "
+          f"collective synchronised) the gathers inside _extract_single_spatial "
+          f"{sp['gather_ms_in_step']:.1f} ms (the largest, "
+          f"{sp['largest_gather_mb']:.1f} MB received, {sp['largest_gather_ms']:.1f} "
+          f"ms), copies into pinned memory {sp['wire_ms_in_step']:.1f} ms (the "
+          f"largest {sp['largest_wire_ms']:.1f} ms), halo hops "
+          f"{sp['hop_ms_in_step']:.1f} ms; peak {sp['peak_mem_gb']:.3f} GB a "
+          f"rank; launches a rank {sp['launches']}; {smi}", flush=True)
     print(f"[dist] (c) SIFT_INT8_MATCH=1 equal to the f64 path: the main step's "
           f"{B} matches of {N_MATCH} u8 rows {m8['int8_median_ms']:.2f} ms "
           f"against {m8['f64_median_ms']:.2f} ms (median of 5); the "
@@ -2639,6 +3011,7 @@ def main() -> int:
           f"byte-equal {rows_eq:.4f}", flush=True)
     if int(v.sum()) < 50 or kp_err > 1e-3 or rows_eq < 0.99:
         raise SystemExit("chip_smoke: card and CPU disagree")
+    oracle_check(img[0], rc, cfg)
 
     # 9. refine_mode="step" (K4) against the default walk
     import dataclasses
@@ -2721,6 +3094,10 @@ def main() -> int:
             # phase 14's one-rank extract_match_step (K6′: with the budget)
             row["launches_dist"] = dist_out[
                 "launches_budget" if k == "K6′" else "launches"].get(k, 0)
+        spatial = dist_out["spatial"]["launches"]
+        if spatial.get(k) or k == "K2′":
+            # phase 14 (d): rank 0's warm spatial step (K2′ must read 0)
+            row["launches_spatial"] = spatial.get(k, 0)
         kernels.append(row)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}, ensure_ascii=False))

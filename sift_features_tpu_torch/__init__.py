@@ -17,6 +17,9 @@ Entry points run on the card unless the caller asks for the CPU
     stream(paths, batch, hw, device="cuda")   JPEG files -> per-batch
                                               [(kps, desc), ...] per frame
     SiftConfig                                the frozen parameter spec
+    oracle.sift(img, proc=NumpyProcessing)    the exact-semantics NumPy
+                                              oracle (oracle/processing.py;
+                                              no device, no cv2 with it)
 """
 
 from .config import DEFAULT_CONFIG, SiftConfig  # noqa: F401

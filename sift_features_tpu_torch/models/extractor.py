@@ -32,7 +32,10 @@ octaves compute in f32 and round their next base back to the storage type.
 The per-frame path `_extract_single` builds each octave level by level (K9)
 and runs the single-frame `_detect_octave`: K2′ words (or the plain extremum
 scan), K3 or K4, K5′ histograms, K6′ descriptors. `extract_with_precomputed`
-runs the same `_detect_octave` on `precompute`'s plain pyramid. Which branch
+runs the same `_detect_octave` on `precompute`'s plain pyramid, and the
+spatial path (parallel/extract.py) runs it on each member's row band
+(the plain extremum scan there, never K2′), describing a budget's chosen
+rows through `_describe_octave_subset`. Which branch
 of `_detect_octave` runs depends on shapes only, as on the TPU, so the CPU
 runs the same branches with the kernels' plain versions inside.
 
@@ -251,15 +254,17 @@ def _detect_octave_batched(gauss_p, dog_p, octave: int, cfg: SiftConfig, hw,
 
 
 def _describe_subset(gauss_flat, win_planes: int, fields, live,
-                     cfg: SiftConfig, h: int, w: int):
+                     cfg: SiftConfig, h: int, w: int, slot_off: int = 1):
     """Descriptors (B, C, 128) u8 of a compacted keypoint subset: fields are
     (B, C) tensors of `desc_in` gathered at the chosen rows, live the (B, C)
     mask (models/extractor.py:_describe_subset); K6′ serves it, or K7 with
-    window_kernel="perkey"."""
+    window_kernel="perkey". Plane f * win_planes + k of gauss_flat holds
+    frame f's level k + slot_off."""
     b, c = fields["kp_s"].shape
     kp_s = fields["kp_s"].reshape(-1)
     hist = descriptor_hist_bucketed(
-        gauss_flat, kp_s - 1 + _frame_offsets(b, win_planes, c, gauss_flat.device),
+        gauss_flat,
+        kp_s - slot_off + _frame_offsets(b, win_planes, c, gauss_flat.device),
         kp_s, fields["xi"].reshape(-1), fields["yi"].reshape(-1),
         fields["kp_sc"].reshape(-1), fields["kp_angle"].reshape(-1), None,
         h, w, desc_ops.PAD_DESC, cfg, live=live.reshape(-1))
@@ -267,11 +272,15 @@ def _describe_subset(gauss_flat, win_planes: int, fields, live,
 
 
 def _detect_octave_plain(gauss: torch.Tensor, octave: int, cfg: SiftConfig,
-                         dog: torch.Tensor | None = None):
+                         dog: torch.Tensor | None = None, bounds=None,
+                         describe: bool = True):
     """The plain branch of models/extractor.py:_detect_octave (pure torch
     ops, no kernel), batched over frames: the tiny top octaves. gauss (B,
     S+3, h, w) holds every level of the octave; dog (B, S+2, h, w) defaults
-    to the differences of adjacent levels."""
+    to the differences of adjacent levels. bounds = (y0, y1, x0, x1) limits
+    the candidates (default: the image_border interior). describe=False
+    returns the descriptor inputs `desc_in` and the window stack `win_ctx`
+    in place of `desc` (see _describe_octave_subset)."""
     b, n_lv, h, w = gauss.shape
     dev = gauss.device
     k, k2, m = octave_capacities(h, w, cfg)
@@ -283,7 +292,7 @@ def _detect_octave_plain(gauss: torch.Tensor, octave: int, cfg: SiftConfig,
     gflat = gp.reshape(b * n_lv, hp, wp)
     if dog is None:
         dog = gauss[:, 1:] - gauss[:, :-1]
-    mask = ext_ops.extrema_mask(dog, cfg)
+    mask = ext_ops.extrema_mask(dog, cfg, bounds=bounds)
     s0, y0, x0, valid, n_cand = ext_ops.find_candidates(mask, k)
     n_dog = n_lv - 1
     rows = ext_ops.refine(dog.reshape(b * n_dog, h, w), s0.reshape(-1),
@@ -301,23 +310,36 @@ def _detect_octave_plain(gauss: torch.Tensor, octave: int, cfg: SiftConfig,
         angles.reshape(b, k2, n_bins), emit.reshape(b, k2, n_bins), svalid, m)
 
     kps, d_in = _keypoints(surv, ci, kp_angle, evalid, octave, cfg)
-    desc = desc_ops.descriptor_batch(
+    res = {"kps": kps, "valid": evalid, "n_candidates": n_cand,
+           "n_survivors": n_surv, "n_emitted": n_emit}
+    if not describe:
+        res["desc_in"] = {**d_in, "kp_angle": kp_angle}
+        res["win_ctx"] = (gflat, 0, False)
+        return res
+    res["desc"] = desc_ops.descriptor_batch(
         gflat, h, w, d_in["kp_s"].reshape(-1) + _frame_offsets(b, n_lv, m, dev),
         d_in["x_oct"].reshape(-1), d_in["y_oct"].reshape(-1),
         d_in["kp_sc"].reshape(-1), kp_angle.reshape(-1), evalid.reshape(-1),
         cfg, pad=p).reshape(b, m, -1)
-    return {"kps": kps, "desc": desc, "valid": evalid, "n_candidates": n_cand,
-            "n_survivors": n_surv, "n_emitted": n_emit}
+    return res
 
 
 def _detect_octave(gauss, dog, octave: int, cfg: SiftConfig, padded=None,
-                   hw=None):
+                   hw=None, row_range=None, describe: bool = True):
     """Single-frame single-octave detection (models/extractor.py:
-    _detect_octave without row_range and describe=False). gauss (S+3, h, w)
-    and dog (S+2, h, w) or None, or padded = (gauss_slots, dog_p, slot_off)
-    from the per-level pyramid kernel K9 with hw = (h, w): gauss_slots[k]
-    holds level k + slot_off. The kernel branch runs when the padded plane is at
-    least 256 wide, whatever the device; else the plain branch."""
+    _detect_octave). gauss (S+3, h, w) and dog (S+2, h, w) or None, or
+    padded = (gauss_slots, dog_p, slot_off) from the per-level pyramid
+    kernel K9 with hw = (h, w): gauss_slots[k] holds level k + slot_off.
+    The kernel branch runs when the padded plane is at least 256 wide,
+    whatever the device; else the plain branch.
+
+    row_range = (y0, y1) limits the candidates to rows [y0, y1) of the
+    octave (the spatial path's row band, clipped to the image_border
+    interior); the extremum scan then takes the plain mask with those
+    bounds, never K2′, as the JAX package's traced band does.
+    describe=False returns the descriptor inputs `desc_in` (kp_s, x_oct,
+    y_oct, kp_sc, kp_angle) and the window context `win_ctx` in place of
+    `desc`, for _describe_octave_subset."""
     if padded is not None:
         gauss_padded, dog_p, slot_off = padded
         h, w = hw
@@ -325,24 +347,34 @@ def _detect_octave(gauss, dog, octave: int, cfg: SiftConfig, padded=None,
         h, w = gauss.shape[-2], gauss.shape[-1]
         slot_off = 0
         gauss_padded = desc_ops.pad_stack_for_kernels(gauss)
+    bd = cfg.image_border
+    y_lo, y_hi = (bd, h - bd) if row_range is None else (
+        max(bd, row_range[0]), min(h - bd, row_range[1]))
     if gauss_padded.shape[-1] < 256:
         r = _detect_octave_plain(gauss[None], octave, cfg,
-                                 None if dog is None else dog[None])
-        return {k: v[0] for k, v in r.items()}
+                                 None if dog is None else dog[None],
+                                 bounds=(y_lo, y_hi, bd, w - bd),
+                                 describe=describe)
+        one = {key: v[0] for key, v in r.items()
+               if key not in ("desc_in", "win_ctx")}
+        if not describe:
+            one["desc_in"] = {key: v[0] for key, v in r["desc_in"].items()}
+            one["win_ctx"] = r["win_ctx"]
+        return one
     k, k2, m = octave_capacities(h, w, cfg)
     p = desc_ops.PAD_DESC
-    bd = cfg.image_border
     n_bins = cfg.n_orientation_bins
     if padded is None:
         # the precomputed layout: the DoG of the zero-padded stack
         dog_p = gauss_padded[1:] - gauss_padded[:-1]
-    bounds = (p + bd, p + h - bd, p + bd, p + w - bd)
     hp, wp = dog_p.shape[-2], dog_p.shape[-1]
-    if hp % 128 == 0 and (wp <= 1536 or wp % 1024 == 0):
-        words = extrema_words_single(dog_p, bounds, cfg)
+    if row_range is None and hp % 128 == 0 and (wp <= 1536 or wp % 1024 == 0):
+        words = extrema_words_single(
+            dog_p, (p + bd, p + h - bd, p + bd, p + w - bd), cfg)
         s0, y0, x0, valid, n_cand = ext_ops.find_candidates_words(words, k)
     else:
-        mask = ext_ops.extrema_mask(dog_p, cfg, bounds=bounds)
+        mask = ext_ops.extrema_mask(dog_p, cfg,
+                                    bounds=(p + y_lo, p + y_hi, p + bd, p + w - bd))
         s0, y0, x0, valid, n_cand = ext_ops.find_candidates(mask, k)
     rows = _refine_auto(dog_p, s0, y0, x0, valid, p, h, w, cfg)
     surv, svalid, n_surv = _survivors(rows, valid[None], 1, k, k2, p)
@@ -356,15 +388,44 @@ def _detect_octave(gauss, dog, octave: int, cfg: SiftConfig, padded=None,
     ci, kp_angle, evalid, n_emit = _emit(
         angles.reshape(1, k2, n_bins), emit.reshape(1, k2, n_bins), svalid, m)
     kps, d_in = _keypoints(surv, ci, kp_angle, evalid, octave, cfg)
+    res = {"kps": kps[0], "valid": evalid[0], "n_candidates": n_cand,
+           "n_survivors": n_surv[0], "n_emitted": n_emit[0]}
+    if not describe:
+        res["desc_in"] = {**{key: v[0] for key, v in d_in.items()},
+                          "kp_angle": kp_angle[0]}
+        res["win_ctx"] = (gauss_padded, slot_off, True)
+        return res
     kp_s = d_in["kp_s"][0]
     hist128 = descriptor_hist_bucketed(
         gauss_padded, kp_s - slot_off, kp_s,
         rust_round(d_in["x_oct"][0]).to(torch.int32),
         rust_round(d_in["y_oct"][0]).to(torch.int32), d_in["kp_sc"][0],
         kp_angle[0], n_emit[0], h, w, p, cfg)
-    return {"kps": kps[0], "desc": desc_ops.finalize_descriptor(hist128, cfg),
-            "valid": evalid[0], "n_candidates": n_cand, "n_survivors": n_surv[0],
-            "n_emitted": n_emit[0]}
+    res["desc"] = desc_ops.finalize_descriptor(hist128, cfg)
+    return res
+
+
+def _describe_octave_subset(win_ctx, fields, live, cfg: SiftConfig, h: int,
+                            w: int) -> torch.Tensor:
+    """Descriptors (C, 128) u8 of a compacted subset of one frame's octave,
+    from _detect_octave(describe=False): fields are (C,) tensors of its
+    `desc_in` at the chosen rows, live the (C,) mask
+    (models/extractor.py:_describe_octave_subset). The kernel branch's
+    subset goes through _describe_subset (K6′, or K7 with
+    window_kernel="perkey"); the plain branch's through the plain
+    descriptor."""
+    gauss_padded, slot_off, kernels = win_ctx
+    if kernels:
+        one = {"kp_s": fields["kp_s"][None], "kp_sc": fields["kp_sc"][None],
+               "kp_angle": fields["kp_angle"][None],
+               "xi": rust_round(fields["x_oct"]).to(torch.int32)[None],
+               "yi": rust_round(fields["y_oct"]).to(torch.int32)[None]}
+        return _describe_subset(gauss_padded, gauss_padded.shape[0], one,
+                                live[None], cfg, h, w, slot_off)[0]
+    return desc_ops.descriptor_batch(
+        gauss_padded, h, w, fields["kp_s"] - slot_off, fields["x_oct"],
+        fields["y_oct"], fields["kp_sc"], fields["kp_angle"], live, cfg,
+        pad=desc_ops.PAD_DESC)
 
 
 COUNTERS = ("n_candidates", "n_survivors", "n_emitted")

@@ -8,7 +8,8 @@ out row-major as JAX lays out its device array:
     rank = data * n_space + space
 
   data  — frames (the throughput axis: a batch of frames per step)
-  space — rows of one frame's pyramid (not ported: ROADMAP Queue A item 3)
+  space — rows of one frame's pyramid (the spatial path: halo-exchange
+          blurs, parallel/halo.py; row-band detection, parallel/extract.py)
 
 Every rank builds the same mesh (the subgroups are created by every rank in
 the same order, as `dist.new_group` requires) and calls the distributed
@@ -34,9 +35,19 @@ import torch.distributed as dist
 
 from ..utils.device import resolve_device
 
-# what this process's collectives have moved: ring hops (shift) and tiled
-# all_gathers, each counted with the bytes this rank sent
-TRAFFIC = {"hops": 0, "hop_bytes": 0, "gathers": 0, "gather_bytes": 0}
+# what this process's collectives have moved: hops (shift: the ring's and
+# the halo's), tiled all_gathers and psums, each counted with the bytes
+# this rank sent, in all ("gather_bytes") and per axis ("gather_bytes_space")
+TRAFFIC = {f"{kind}{what}{axis}": 0 for kind in ("hop", "gather", "reduce")
+           for what in ("s", "_bytes") for axis in ("", "_data", "_space")}
+
+
+def _count(kind: str, axis_name: str, t: torch.Tensor) -> None:
+    """Count one collective of `kind` over `axis_name` that sent t."""
+    nbytes = t.numel() * t.element_size()
+    for suffix in ("", "_" + axis_name):
+        TRAFFIC[f"{kind}s{suffix}"] += 1
+        TRAFFIC[f"{kind}_bytes{suffix}"] += nbytes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,8 +180,9 @@ def _wire(t: torch.Tensor, staged: bool) -> torch.Tensor:
     return t
 
 
-def all_gather(mesh: Mesh, axis_name: str, t: torch.Tensor) -> torch.Tensor:
-    """Concatenate every rank's t along dim 0 in `axis_name` order (a tiled
+def all_gather(mesh: Mesh, axis_name: str, t: torch.Tensor,
+               dim: int = 0) -> torch.Tensor:
+    """Concatenate every rank's t along `dim` in `axis_name` order (a tiled
     all_gather); every rank's t has the same shape. Identity on a one-rank
     axis."""
     group = mesh.groups[axis_name]
@@ -180,16 +192,34 @@ def all_gather(mesh: Mesh, axis_name: str, t: torch.Tensor) -> torch.Tensor:
     src = _wire(t, staged)
     parts = [torch.empty_like(src) for _ in range(mesh.shape[axis_name])]
     dist.all_gather(parts, src, group=group)
-    TRAFFIC["gathers"] += 1
-    TRAFFIC["gather_bytes"] += src.numel() * src.element_size()
-    out = torch.cat(parts).to(t.device, non_blocking=False)
+    _count("gather", axis_name, src)
+    out = torch.cat(parts, dim).to(t.device, non_blocking=False)
     return out.view(torch.bool) if t.dtype == torch.bool else out
 
 
-def shift(mesh: Mesh, axis_name: str, buf: torch.Tensor) -> torch.Tensor:
-    """One ring hop along `axis_name`: send buf (a contiguous u8 tensor) to
-    the next rank of the axis, (i + 1) % n, and return the one received
-    from the previous, (i - 1) % n. Identity on a one-rank axis."""
+def psum(mesh: Mesh, axis_name: str, t: torch.Tensor) -> torch.Tensor:
+    """The elementwise sum of every rank's t over `axis_name` (an
+    all_reduce into a new tensor; t is left as it was). Identity on a
+    one-rank axis."""
+    group = mesh.groups[axis_name]
+    if group is None:
+        return t
+    staged = _staged(group, t.device)
+    buf = _wire(t, staged)
+    if buf.data_ptr() == t.data_ptr():
+        buf = buf.clone()
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    _count("reduce", axis_name, buf)
+    return buf.to(t.device)
+
+
+def shift(mesh: Mesh, axis_name: str, buf: torch.Tensor,
+          offset: int = 1) -> torch.Tensor:
+    """One hop along `axis_name`: send buf to the rank `offset` places on,
+    (i + offset) % n, and return the one received from (i - offset) % n,
+    of buf's shape and type. offset=1 is the ring's hop; offset=-1 the
+    reverse one, which the halo exchange takes for its bottom rows.
+    Identity on a one-rank axis."""
     group, ranks = mesh.groups[axis_name], mesh.ranks[axis_name]
     n, i = len(ranks), mesh.coords[axis_name]
     if n == 1:
@@ -197,10 +227,10 @@ def shift(mesh: Mesh, axis_name: str, buf: torch.Tensor) -> torch.Tensor:
     staged = _staged(group, buf.device)
     send = _wire(buf, staged)
     recv = torch.empty_like(send)
-    ops = [dist.P2POp(dist.isend, send, ranks[(i + 1) % n], group),
-           dist.P2POp(dist.irecv, recv, ranks[(i - 1) % n], group)]
+    ops = [dist.P2POp(dist.isend, send, ranks[(i + offset) % n], group),
+           dist.P2POp(dist.irecv, recv, ranks[(i - offset) % n], group)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    TRAFFIC["hops"] += 1
-    TRAFFIC["hop_bytes"] += send.numel()
-    return recv.to(buf.device) if staged else recv
+    _count("hop", axis_name, send)
+    out = recv.to(buf.device) if staged else recv
+    return out.view(torch.bool) if buf.dtype == torch.bool else out

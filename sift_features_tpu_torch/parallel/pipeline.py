@@ -10,8 +10,11 @@ frame tags riding the ring so that a query never matches its own frame
 (loop closure / retrieval within a batch). The result is gathered over
 `data`: every rank returns the whole batch's.
 
-Only n_space == 1 is ported: the spatial mesh (`space` > 1) is ROADMAP
-Queue A item 3.
+With `space` > 1 each data rank's frames go one after another through the
+spatial path (`extract._extract_single_spatial`: rows over `space`,
+halo-exchange blurs, detection by row band); the members' buffers are
+gathered over `space` along the keypoint axis in member order, the layout
+of JAX's `out_specs P("data", "space")`, and their counters summed.
 """
 
 from __future__ import annotations
@@ -19,8 +22,8 @@ from __future__ import annotations
 import torch
 
 from ..config import SiftConfig, check_supported
-from .extract import data_shard, gather_frames
-from .mesh import Mesh, make_mesh
+from .extract import _extract_single_spatial, data_shard, gather_frames
+from .mesh import Mesh, all_gather, make_mesh, psum
 from .ring import _ring_body
 
 OUTPUT_KEYS = ("kps", "desc", "valid", "n_candidates", "n_survivors",
@@ -49,6 +52,33 @@ def queries_and_database(res: dict, frame0: int, queries_per_frame: int):
             tags.repeat_interleave(n))
 
 
+def _spatial_shard(frames: torch.Tensor, n_octaves: int, cfg: SiftConfig,
+                   mesh: Mesh, features_limit: int | None) -> dict:
+    """The extraction of extract_match_step at space > 1: this data rank's
+    (b, H, W) frames, one after another, through _extract_single_spatial
+    (JAX's lax.map); each member's (b, M, ...) buffers gathered over
+    `space` along the keypoint axis in member order and the counters
+    summed over `space`. With features_limit, the member-concatenated
+    axis is compressed back to the frame's top min(limit, rows) by
+    response (jax.lax.top_k's tie rule; parallel/pipeline.py:79-94)."""
+    from ..models.extractor import COUNTERS, _gather_rows, _top_rows
+
+    per = [_extract_single_spatial(f, n_octaves, cfg, mesh, features_limit)
+           for f in frames]
+    res = {k: all_gather(mesh, "space", torch.stack([r[k] for r in per]), 1)
+           for k in ("kps", "desc", "valid")}
+    res.update({k: psum(mesh, "space", torch.stack([r[k] for r in per]))
+                for k in COUNTERS})
+    if features_limit is not None:
+        # the rows a member did not choose are zero, as _top_rows leaves
+        # the empty ones
+        kps, top_idx, tvalid = _top_rows(res["kps"], res["valid"],
+                                         features_limit)
+        res.update({"kps": kps, "desc": _gather_rows(res["desc"], top_idx),
+                    "valid": tvalid})
+    return res
+
+
 def extract_match_step(imgs_u8, n_octaves: int, cfg: SiftConfig,
                        mesh: Mesh | None = None, queries_per_frame: int = 128,
                        features_limit: int | None = None) -> dict:
@@ -70,15 +100,13 @@ def extract_match_step(imgs_u8, n_octaves: int, cfg: SiftConfig,
 
     check_supported(cfg)
     mesh = mesh if mesh is not None else make_mesh()
-    if mesh.shape["space"] > 1:
-        raise NotImplementedError(
-            "extract_match_step with space > 1 (the spatial mesh: halo-"
-            "exchange blurs, parallel/halo.py) is not ported: ROADMAP Queue A "
-            "item 3")
     mine = data_shard(imgs_u8, mesh)
     b = mine.shape[0]
-    res = _extract_batch_fused(mine, n_octaves, cfg, budget=features_limit)
-    res.pop("src_idx", None)
+    if mesh.shape["space"] > 1:
+        res = _spatial_shard(mine, n_octaves, cfg, mesh, features_limit)
+    else:
+        res = _extract_batch_fused(mine, n_octaves, cfg, budget=features_limit)
+        res.pop("src_idx", None)
     n = res["valid"].shape[1]
     frame0 = mesh.coords["data"] * b
     top_idx, q, qv, q_tag, t, tv, t_tag = queries_and_database(

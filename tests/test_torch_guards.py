@@ -40,6 +40,32 @@ def test_port_imports_no_jax():
             assert top not in ("jax", "jaxlib", "sift_features_tpu"), (f, mod)
 
 
+def _module_level_imports(path):
+    """Modules imported by the statements of a file's top level (not
+    inside a function or class)."""
+    for node in ast.parse(path.read_text(), str(path)).body:
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_cv2_at_module_level():
+    """No module of the port imports cv2 when it is imported: the oracle's
+    CvProcessing, the image loaders and the examples import it where they
+    use it (the card's machine has no cv2). The spatial path, the oracle
+    and the examples are among the files read."""
+    pkg = ROOT / "sift_features_tpu_torch"
+    files = sorted(pkg.rglob("*.py"))
+    names = {f.relative_to(pkg).as_posix() for f in files}
+    assert {"parallel/halo.py", "parallel/extract.py", "oracle/oracle.py",
+            "oracle/processing.py", "examples/run_sift.py",
+            "examples/sift_match.py", "examples/opencv_cross_match.py",
+            "examples/build_index.py"} <= names
+    for f in files:
+        assert "cv2" not in {m.split(".")[0] for m in _module_level_imports(f)}, f
+
+
 def test_entry_points_need_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     img = np.zeros((32, 32), np.uint8)
@@ -105,8 +131,7 @@ def test_wrappers_never_fall_back():
 
 
 def test_unported_paths_raise(one_torch_thread):
-    """Unknown mode names raise ValueError at the entry points, and the
-    spatial mesh (space > 1) NotImplementedError. Every
+    """Unknown mode names raise ValueError at the entry points. Every
     storage mode runs through extract_batch, with and without
     features_limit; the entry points that ignore the storage modes, as the
     JAX package's do (_extract_single, precompute and
@@ -114,12 +139,6 @@ def test_unported_paths_raise(one_torch_thread):
     import dataclasses
 
     img = smooth_images(3, 1, 32, 32)
-    from sift_features_tpu_torch.parallel import extract_match_step, make_mesh
-
-    mesh = dataclasses.replace(make_mesh(device="cpu"),
-                               shape={"data": 1, "space": 2})
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        extract_match_step(img, 1, CFG, mesh)
     for field, value in (("storage_dtype", "float16"),
                          ("gather_dtype", "split"), ("refine_mode", "walks")):
         cfg = dataclasses.replace(CFG, **{field: value})

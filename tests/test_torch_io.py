@@ -312,6 +312,10 @@ def test_failed_native_build_raises(monkeypatch, tmp_path, module, error):
 
     mod = {"native_loader": native_loader, "native_output": native_output}[module]
     exc = getattr(mod, error)
+    # the stream call below loads the real decode tier: build it where it
+    # belongs first, so that this test does not depend on an earlier test
+    # of its process having loaded it
+    native_loader._get_lib()
     monkeypatch.setattr(native_build, "BUILD_DIR", str(tmp_path / "out"))
     broken = tmp_path / "broken.cpp"
     broken.write_text("int main( {\n")

@@ -9,12 +9,16 @@ forms, on the CPU:
   shards), the tagged ring body, `extract_batch_dp` and
   `extract_match_step` on three 48 x 64 frames with and without a
   features_limit, a `DescriptorIndex(mesh=...)` query and `save()`'s
-  default shard count, `barrier`;
+  default shard count, `barrier`; on a (data=1, space=3) mesh of the same
+  ranks, a halo-exchange blur, `psum` and the spatial `extract_match_step`
+  with and without the limit;
 - here, the ranks' results against each other, the ring against JAX
   `ring_match` on a three-device mesh and the port's dense matcher (bit for
   bit), the tagged body against JAX `_ring_body` under `shard_map` and the
   port's `match_tagged_dense`, the three-rank pipeline against the port's
-  one-rank run and against `extract_batch`;
+  one-rank run and against `extract_batch`, the halo blur against the
+  port's `gaussian_blur` and JAX `gaussian_blur_sharded`, the spatial step
+  against the split path and the one-rank step;
 - the port's one-rank `extract_match_step` against JAX
   `extract_match_step` on a one-device mesh (one jit compile, ~40 s);
 - the mesh, sharding, runner and scaling helpers in this process.
@@ -63,6 +67,7 @@ from sift_features_tpu_torch.parallel import (extract_batch_dp,
                                               ring_match)
 from sift_features_tpu_torch.parallel import mesh as tmesh
 from sift_features_tpu_torch.parallel import ring
+from sift_features_tpu_torch.parallel.halo import gaussian_blur_sharded
 from sift_features_tpu_torch.parallel.runner import barrier, init_distributed
 from sift_features_tpu_torch.service import DescriptorIndex
 
@@ -117,6 +122,21 @@ back = DescriptorIndex.load(d, mesh)
 r2 = back.query(query)
 res["load_same"] = all(np.array_equal(getattr(r, f), getattr(r2, f)) for f in
                        ("query_idx", "frame_id", "keypoint_idx", "distance"))
+# the spatial mesh: one frame's rows over all n ranks
+smesh = make_mesh(1, n, device="cpu")
+assert smesh.shape == {"data": 1, "space": n} and smesh.coords["space"] == rank
+x = torch.from_numpy(inp["halo_x"])
+h_loc = x.shape[0] // n
+base = dict(tmesh.TRAFFIC)
+res["halo_blur"] = tmesh.all_gather(smesh, "space", gaussian_blur_sharded(
+    x[rank * h_loc:(rank + 1) * h_loc], 2.0, smesh)).numpy()
+res.update({f"halo_{k}": tmesh.TRAFFIC[k] - base[k] for k in base})
+res["psum"] = tmesh.psum(smesh, "space", torch.tensor([rank, 1])).numpy()
+sp = extract_match_step(frames, n_oct, CFG, smesh, 128)
+res.update({f"sp_{k}": v.numpy() for k, v in sp.items()})
+sl = extract_match_step(frames, n_oct, CFG, smesh, int(inp["limit_queries"]),
+                        int(inp["limit"]))
+res.update({f"splim_{k}": v.numpy() for k, v in sl.items()})
 res["barrier_end_s"] = barrier("end", timeout_s=120.0)
 np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
 print(f"rank {rank} OK", flush=True)
@@ -150,7 +170,8 @@ def _inputs():
     frames = smooth_images(3, N_RANKS, 48, 64)
     return {"u8_train": u8_t, "u8_query": u8_q, "ties_train": ties_t,
             "ties_query": ties_q, **tags, "frames": frames,
-            "limit": LIMIT, "limit_queries": LIMIT_QUERIES}
+            "limit": LIMIT, "limit_queries": LIMIT_QUERIES,
+            "halo_x": rng.rand(96, 40).astype(np.float32)}
 
 
 def _start_ranks(out):
@@ -372,6 +393,131 @@ def test_service_mesh_query_and_shards(ranks):
     assert all(r["shards"] == N_RANKS and r["load_same"] for r in res)
     assert all(0 <= r["barrier_s"] < 120 and 0 <= r["barrier_end_s"] < 120
                for r in res)
+
+
+def _split_path(frames):
+    """The frames through precompute + extract_with_precomputed: the plain
+    reflect-101 blur chain, which the spatial path's halo blurs compute."""
+    return _cached("split", lambda: {k: v.numpy() for k, v in
+                                     tx.extract_with_precomputed(
+                                         *tx.precompute(frames, CFG, device="cpu"),
+                                         CFG, device="cpu").items()})
+
+
+def _canon(kps, desc, valid):
+    """A frame's valid rows [kps | desc], sorted: the keypoint set."""
+    comb = np.concatenate([kps[valid], desc[valid].astype(np.float32)], 1)
+    return comb[np.lexsort(comb.T[::-1])]
+
+
+def _step_of(res, pre):
+    return {k[len(pre):]: v for k, v in res.items() if k.startswith(pre)}
+
+
+def _assert_matches_dense(step):
+    """The step's matches equal the tagged dense reference run on its own
+    queries and rows."""
+    _, q, qv, qt, t, tv, tt = pipeline.queries_and_database(
+        {k: torch.from_numpy(step[k]) for k in ("kps", "desc", "valid")}, 0,
+        step["query_idx"].shape[1])
+    b = step["valid"].shape[0]
+    for k, r in zip(("match_train", "match_dist", "match_keep"),
+                    ring.match_tagged_dense(t, tv, tt, q, qv, qt)):
+        assert np.array_equal(step[k], r.reshape(b, -1).numpy()), k
+
+
+def test_halo_blur_matches_port_and_jax(ranks):
+    """The three members' halo blur (sigma 2, 32 rows each), gathered, is
+    bit-equal to the port's gaussian_blur of the whole array and within
+    3e-7 of JAX gaussian_blur_sharded under shard_map on a three-device
+    mesh (the bar of JAX's test_halo_blur_matches_unsharded); each member
+    made two hops of r = 8 rows and one gather, all counted on the space
+    axis (TRAFFIC per axis); psum sums over the members."""
+    import jax
+    from jax.sharding import PartitionSpec as JP
+
+    from sift_features_tpu.parallel.halo import gaussian_blur_sharded as jblur
+    from sift_features_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from sift_features_tpu_torch.ops.gaussian import gaussian_blur
+
+    res, inp = ranks
+    x = inp["halo_x"]
+    got = res[0]["halo_blur"]
+    assert np.array_equal(got, gaussian_blur(torch.from_numpy(x), 2.0).numpy())
+    want = jax.jit(jax.shard_map(
+        lambda xs: jblur(xs, 2.0, "space", N_RANKS),
+        mesh=jmake_mesh(n_data=1, n_space=N_RANKS),
+        in_specs=JP("space", None), out_specs=JP("space", None)))(x)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=3e-7)
+    # two hops and the gather, each counted on the space axis alone
+    for r in res:
+        assert r["halo_hops"] == r["halo_hops_space"] == 2
+        assert r["halo_hop_bytes"] == r["halo_hop_bytes_space"] == 2 * 8 * 40 * 4
+        assert r["halo_gathers"] == r["halo_gathers_space"] == 1
+        assert r["halo_hops_data"] == r["halo_gathers_data"] == 0
+    assert all(np.array_equal(r["psum"], [3, N_RANKS]) for r in res)
+
+
+def test_spatial_step_equals_split_path(ranks):
+    """extract_match_step on a (data=1, space=3) mesh (octaves of 96 and 48
+    rows built row-sharded, the smaller ones whole): per frame, the valid
+    rows are the keypoint set of precompute + extract_with_precomputed
+    byte for byte (JAX's test_spatial_detection_equals_single, whose
+    single-chip reference on the CPU is that same plain blur chain), and
+    the counters equal. Against the one-rank step, whose K1 blurs the
+    padded plane (ulps apart near the borders), the counters and counts
+    are equal and the split path's rows, in scan order, are within
+    test_split_matches_fused's bar. The matches are the tagged dense
+    reference's on the spatial layout's own queries and rows."""
+    res, inp = ranks
+    frames = inp["frames"]
+    sp = _step_of(res[0], "sp_")
+    one = _one_rank_step(frames)
+    assert set(sp) == set(one)
+    split = _split_path(frames)
+    m_tot = split["valid"].shape[1]
+    assert sp["valid"].shape == (N_RANKS, N_RANKS * m_tot)
+    for f in range(frames.shape[0]):
+        a = _canon(sp["kps"][f], sp["desc"][f], sp["valid"][f])
+        assert a.shape[0] >= 15
+        assert np.array_equal(a, _canon(split["kps"][f], split["desc"][f],
+                                        split["valid"][f])), f
+    for k in ("n_candidates", "n_survivors", "n_emitted"):
+        assert np.array_equal(sp[k], split[k]), k
+        assert np.array_equal(sp[k], one[k]), k
+    vs, vo = split["valid"], one["valid"]
+    assert np.array_equal(vs.sum(1), vo.sum(1))
+    np.testing.assert_allclose(split["kps"][vs], one["kps"][vo], rtol=0,
+                               atol=1e-4)
+    assert np.abs(split["desc"][vs].astype(int)
+                  - one["desc"][vo].astype(int)).max() <= 1
+    _assert_matches_dense(sp)
+    assert sp["match_keep"].sum() >= 5
+
+
+def test_spatial_step_budget(ranks):
+    """The spatial step with features_limit (the spatial part of JAX
+    test_extract_match_step_budget): LIMIT rows a frame holding the
+    response top-LIMIT of the unbudgeted spatial step, each kept row's
+    keypoint and descriptor bytes those of its row there; the counters of
+    the unbudgeted step; the matches the tagged dense reference's."""
+    res, _ = ranks
+    full, lim = _step_of(res[0], "sp_"), _step_of(res[0], "splim_")
+    assert lim["kps"].shape[1] == LIMIT
+    for k in ("n_candidates", "n_survivors", "n_emitted"):
+        assert np.array_equal(lim[k], full[k]), k
+    for f in range(lim["valid"].shape[0]):
+        resp = np.where(full["valid"][f], full["kps"][f][:, 4], -np.inf)
+        order = np.argsort(-resp, kind="stable")[:LIMIT]
+        order = order[resp[order] > -np.inf]
+        kept = lim["valid"][f]
+        assert kept.sum() == len(order) >= 15
+        np.testing.assert_array_equal(np.sort(lim["kps"][f][kept][:, 4]),
+                                      np.sort(full["kps"][f][order][:, 4]))
+        want = {full["kps"][f][i].tobytes(): full["desc"][f][i] for i in order}
+        for kp, d in zip(lim["kps"][f][kept], lim["desc"][f][kept]):
+            assert np.array_equal(want[kp.tobytes()], d)
+    _assert_matches_dense(lim)
 
 
 def test_one_rank_step_matches_jax():
