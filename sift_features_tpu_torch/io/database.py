@@ -15,6 +15,8 @@ import os
 
 import numpy as np
 
+from ..utils.profiling import span
+
 
 def _host(x) -> np.ndarray:
     """A torch tensor on any device, or an array, as a NumPy array."""
@@ -45,30 +47,34 @@ class DescriptorDB:
         """Build from an extract_batch result dict (padded rows kps / desc
         and their valid mask): torch tensors on any device, or arrays. The
         valid rows are selected where the tensors lie, then copied to the
-        host."""
-        valid = res["valid"]
-        kps = _host(res["kps"][valid])
-        desc = _host(res["desc"][valid])
-        counts = _host(valid.sum(1))
-        b = counts.shape[0]
-        if frame_ids is None:
-            frame_ids = np.arange(b, dtype=np.int64)
-        offsets = np.zeros(b + 1, np.int64)
-        np.cumsum(counts, out=offsets[1:])
-        return cls(np.asarray(frame_ids, np.int64), offsets,
-                   kps.astype(np.float32), desc)
+        host (span `db.from_batch`)."""
+        with span("db.from_batch"):
+            valid = res["valid"]
+            kps = _host(res["kps"][valid])
+            desc = _host(res["desc"][valid])
+            counts = _host(valid.sum(1))
+            b = counts.shape[0]
+            if frame_ids is None:
+                frame_ids = np.arange(b, dtype=np.int64)
+            offsets = np.zeros(b + 1, np.int64)
+            np.cumsum(counts, out=offsets[1:])
+            return cls(np.asarray(frame_ids, np.int64), offsets,
+                       kps.astype(np.float32), desc)
 
     def frame(self, i: int):
         lo, hi = self.offsets[i], self.offsets[i + 1]
         return self.keypoints[lo:hi], self.descriptors[lo:hi]
 
     def extend(self, other: "DescriptorDB") -> "DescriptorDB":
-        off = np.concatenate([self.offsets,
-                              other.offsets[1:] + self.offsets[-1]])
-        return DescriptorDB(
-            np.concatenate([self.frame_ids, other.frame_ids]), off,
-            np.concatenate([self.keypoints, other.keypoints]),
-            np.concatenate([self.descriptors, other.descriptors]))
+        """This database with other's frames after its own (span
+        `db.extend`)."""
+        with span("db.extend"):
+            off = np.concatenate([self.offsets,
+                                  other.offsets[1:] + self.offsets[-1]])
+            return DescriptorDB(
+                np.concatenate([self.frame_ids, other.frame_ids]), off,
+                np.concatenate([self.keypoints, other.keypoints]),
+                np.concatenate([self.descriptors, other.descriptors]))
 
     def save(self, path: str) -> None:
         np.savez_compressed(path, frame_ids=self.frame_ids,

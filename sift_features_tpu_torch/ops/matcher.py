@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.profiling import span, stage_clock
 from .util import sqrt_f32
 
 # Bytes of one (Q, chunk) float64 temporary of the distance matrix: the
@@ -56,6 +57,11 @@ from .util import sqrt_f32
 # temporaries and their f32 rounding alive at a time (~1.25 GiB). A
 # 1024-row query (the main step's) takes up to 65,536 train rows at once.
 TEMP_BYTES = 1 << 29
+
+# the stages of a chunk that a profiled query times on the card's stream
+# (launch gaps included): the distances (`_chunk_d2`), then the argmins,
+# the running best and the cross-check's per-train argmin
+STAGES = ("matcher.distance", "matcher.select")
 
 
 @dataclasses.dataclass
@@ -116,42 +122,67 @@ def int8_match_enabled() -> bool:
 def match_dense(d_train: torch.Tensor, d_query: torch.Tensor,
                 cross_check: bool = True, int8: bool = False):
     """(T, D), (Q, D) -> (best_train (Q,) int64, distance (Q,) f32, keep (Q,)
-    bool); keep marks mutual nearest neighbours when cross_check. The train
-    rows go in chunks of `TEMP_BYTES` (module note). int8=True on u8 x u8
-    input takes the int8 path (module note), with the same result."""
+    bool); keep marks mutual nearest neighbours when cross_check. The query
+    rows move to the train rows' device; the train rows go in chunks of
+    `TEMP_BYTES` (module note). int8=True on u8 x u8 input takes the int8
+    path (module note), with the same result. With no row on either side no
+    query row is kept.
+
+    Spans `matcher.prepare` (the query to the device, its norms) and
+    `matcher.chunks` (the chunk loop and the cross-check; attributes
+    `chunks` and `pairs`, the Q x T distances), under a profiler session on
+    the card with the chunks' stream time in `matcher.distance` and
+    `matcher.select` (utils/profiling.py)."""
     n_q, n_t = d_query.shape[0], d_train.shape[0]
+    dev = d_train.device
+    if n_q == 0 or n_t == 0:
+        return (torch.zeros(n_q, dtype=torch.int64, device=dev),
+                torch.full((n_q,), float("inf"), dtype=torch.float32, device=dev),
+                torch.zeros(n_q, dtype=torch.bool, device=dev))
     int8 = int8 and d_train.dtype == d_query.dtype == torch.uint8
-    if int8:
-        rows = max(8, TEMP_BYTES // (4 * max(n_q, 1)) // 8 * 8)
-        b = _int8(d_query)
-        b = torch.cat([b, b.new_zeros((max(0, 17 - n_q), b.shape[1]))])
-        bb = torch.sum(b.to(torch.int32) ** 2, dim=1)
-    else:
-        rows = max(1, TEMP_BYTES // (8 * max(n_q, 1)))
-        b = d_query.to(torch.float64)
-        bb = torch.sum(b * b, dim=1)
-    best_query = []
-    for t0 in range(0, max(n_t, 1), rows):
-        a = d_train if rows >= n_t else d_train[t0:t0 + rows]
-        d2 = (_chunk_d2_int8(a, b, bb, n_q) if int8 else _chunk_d2(a, b, bb))
-        arg = torch.argmin(d2, dim=1)
-        low = torch.gather(d2, 1, arg[:, None])[:, 0]
-        if t0 == 0:
-            best_train, best_d2 = arg, low
+    with span("matcher.prepare", rows=n_q):
+        d_query = d_query.to(dev)
+        if int8:
+            rows = max(8, TEMP_BYTES // (4 * n_q) // 8 * 8)
+            b = _int8(d_query)
+            b = torch.cat([b, b.new_zeros((max(0, 17 - n_q), b.shape[1]))])
+            bb = torch.sum(b.to(torch.int32) ** 2, dim=1)
         else:
-            better = low < best_d2
-            best_train = torch.where(better, arg + t0, best_train)
-            best_d2 = torch.where(better, low, best_d2)
+            rows = max(1, TEMP_BYTES // (8 * n_q))
+            b = d_query.to(torch.float64)
+            bb = torch.sum(b * b, dim=1)
+    n_chunks = -(-n_t // rows)
+    with span("matcher.chunks", chunks=n_chunks, pairs=n_q * n_t):
+        clock = stage_clock(dev, STAGES, "chunks")
+        best_query = []
+        for t0 in range(0, n_t, rows):
+            if clock is not None:
+                clock.mark()
+            a = d_train if rows >= n_t else d_train[t0:t0 + rows]
+            d2 = (_chunk_d2_int8(a, b, bb, n_q) if int8
+                  else _chunk_d2(a, b, bb))
+            if clock is not None:
+                clock.mark()
+            arg = torch.argmin(d2, dim=1)
+            low = torch.gather(d2, 1, arg[:, None])[:, 0]
+            if t0 == 0:
+                best_train, best_d2 = arg, low
+            else:
+                better = low < best_d2
+                best_train = torch.where(better, arg + t0, best_train)
+                best_d2 = torch.where(better, low, best_d2)
+            if cross_check:
+                best_query.append(torch.argmin(d2, dim=0))
+            del d2
+        if clock is not None:
+            clock.mark()
         if cross_check:
-            best_query.append(torch.argmin(d2, dim=0))
-        del d2
-    if cross_check:
-        best_query = (best_query[0] if len(best_query) == 1
-                      else torch.cat(best_query))
-        keep = best_query[best_train] == torch.arange(n_q, device=b.device)
-    else:
-        keep = torch.ones(n_q, dtype=torch.bool, device=b.device)
-    return best_train, sqrt_f32(best_d2.to(torch.float32)), keep
+            best_query = (best_query[0] if len(best_query) == 1
+                          else torch.cat(best_query))
+            keep = best_query[best_train] == torch.arange(n_q, device=dev)
+        else:
+            keep = torch.ones(n_q, dtype=torch.bool, device=dev)
+        return best_train, sqrt_f32(best_d2.to(torch.float32)), keep
 
 
 def _on(x, dev: torch.device) -> torch.Tensor:
@@ -167,8 +198,11 @@ def match_brute_force(d_train, d_query, cross_check: bool = True,
     Arrays or tensors (on any device) of (N, 128) u8 or f32; the match runs
     on `device`, where a tensor that is already there is not copied."""
     dev = resolve_device(device)
-    bt, dist, keep = match_dense(_on(d_train, dev), _on(d_query, dev),
-                                 cross_check, int8_match_enabled())
-    bt, dist, keep = bt.cpu().numpy(), dist.cpu().numpy(), keep.cpu().numpy()
-    qi = np.nonzero(keep)[0]
+    if not isinstance(d_query, torch.Tensor):
+        d_query = torch.as_tensor(np.asarray(d_query))
+    bt, dist, keep = match_dense(_on(d_train, dev), d_query, cross_check,
+                                 int8_match_enabled())
+    with span("matcher.readback"):
+        bt, dist, keep = bt.cpu().numpy(), dist.cpu().numpy(), keep.cpu().numpy()
+        qi = np.nonzero(keep)[0]
     return Matches(query_idx=qi, train_idx=bt[qi], distance=dist[qi])

@@ -29,6 +29,7 @@ import torch
 
 from ..ops import matcher
 from ..ops.util import sqrt_f32
+from ..utils.profiling import span
 from .mesh import Mesh, all_gather, make_mesh, shift
 
 F32 = torch.float32
@@ -163,12 +164,13 @@ def ring_match(d_train, d_query, mesh: Mesh | None = None,
     # u8 descriptors stay u8 on the wire; anything else is f32
     u8 = all(str(x.dtype).endswith("uint8") for x in (d_train, d_query))
     dt = torch.uint8 if u8 else F32
-    q, qv, _ = _block(d_query, n, me, dt, dev)
-    t, tv, t_blk = _block(d_train, n, me, dt, dev)
-    bt, bd, keep = _ring_body(q, qv, t, tv, mesh, axis_name, t_blk)
-    if not cross_check:
-        keep = qv & torch.isfinite(bd)
-    bt, bd, keep = (all_gather(mesh, axis_name, x).cpu().numpy()
-                    for x in (bt, bd, keep))
-    qi = np.nonzero(keep[:len(d_query)])[0]
-    return qi, bt[qi], bd[qi]
+    with span("matcher.ring", ranks=n):
+        q, qv, _ = _block(d_query, n, me, dt, dev)
+        t, tv, t_blk = _block(d_train, n, me, dt, dev)
+        bt, bd, keep = _ring_body(q, qv, t, tv, mesh, axis_name, t_blk)
+        if not cross_check:
+            keep = qv & torch.isfinite(bd)
+        bt, bd, keep = (all_gather(mesh, axis_name, x).cpu().numpy()
+                        for x in (bt, bd, keep))
+        qi = np.nonzero(keep[:len(d_query)])[0]
+        return qi, bt[qi], bd[qi]

@@ -27,6 +27,7 @@ import torch
 from .config import DEFAULT_CONFIG, SiftConfig
 from .io.database import DescriptorDB
 from .utils.device import resolve_device
+from .utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -50,7 +51,13 @@ class DescriptorIndex:
     mesh: an optional parallel.mesh.Mesh; queries then run the ring matcher
     over its `axis_name` ranks (every rank of the mesh queries together),
     u8 descriptors on the wire. A device that differs from the mesh's
-    raises ValueError."""
+    raises ValueError.
+
+    Spans (utils/profiling.py): `service.query` around a query, with the
+    matcher's spans, `service.train_upload` (a new database's descriptors
+    to the device; attribute `bytes`), `service.row_maps` (attribute
+    `cache_hit`) and `service.result` inside; `service.ingest` around
+    `add_batch_result`, with `db.from_batch` and `db.extend` inside."""
 
     def __init__(self, db: DescriptorDB | None = None, mesh=None,
                  axis_name: str = "data", *,
@@ -86,10 +93,12 @@ class DescriptorIndex:
     def add_batch_result(self, res, frame_ids=None) -> None:
         """Append an extract_batch result dict (tensors on any device, or
         arrays); frame ids default to the next free ones."""
-        if frame_ids is None:
-            n = len(self.db.frame_ids)
-            frame_ids = np.arange(n, n + res["valid"].shape[0], dtype=np.int64)
-        self.db = self.db.extend(DescriptorDB.from_batch(res, frame_ids))
+        with span("service.ingest", frames=int(res["valid"].shape[0])):
+            if frame_ids is None:
+                n = len(self.db.frame_ids)
+                frame_ids = np.arange(n, n + res["valid"].shape[0],
+                                      dtype=np.int64)
+            self.db = self.db.extend(DescriptorDB.from_batch(res, frame_ids))
 
     # --- query ------------------------------------------------------------
 
@@ -97,24 +106,29 @@ class DescriptorIndex:
         """row -> (frame id, keypoint index) maps, cached per database:
         queries are O(matches), not O(frames) + O(rows)."""
         cached = self._row_maps_cache
-        if cached is not None and cached[0] is self.db:
-            return cached[1], cached[2]
-        offs = self.db.offsets
-        n = int(offs[-1])
-        lens = np.diff(offs).astype(np.int64)
-        row_frame = np.repeat(np.asarray(self.db.frame_ids, np.int64), lens)
-        row_kp = np.arange(n, dtype=np.int64) - np.repeat(
-            offs[:-1].astype(np.int64), lens)
-        self._row_maps_cache = (self.db, row_frame, row_kp)
-        return row_frame, row_kp
+        hit = cached is not None and cached[0] is self.db
+        with span("service.row_maps", cache_hit=hit):
+            if hit:
+                return cached[1], cached[2]
+            offs = self.db.offsets
+            n = int(offs[-1])
+            lens = np.diff(offs).astype(np.int64)
+            row_frame = np.repeat(np.asarray(self.db.frame_ids, np.int64), lens)
+            row_kp = np.arange(n, dtype=np.int64) - np.repeat(
+                offs[:-1].astype(np.int64), lens)
+            self._row_maps_cache = (self.db, row_frame, row_kp)
+            return row_frame, row_kp
 
     def _train(self) -> torch.Tensor:
         """The database's descriptors on the index's device, cached per
         database."""
         cached = self._train_cache
         if cached is None or cached[0] is not self.db:
-            cached = self._train_cache = (
-                self.db, torch.as_tensor(self.db.descriptors, device=self.device))
+            with span("service.train_upload",
+                      bytes=int(self.db.descriptors.nbytes)):
+                cached = self._train_cache = (
+                    self.db,
+                    torch.as_tensor(self.db.descriptors, device=self.device))
         return cached[1]
 
     def query(self, desc_q, cross_check: bool = True) -> QueryResult:
@@ -127,18 +141,21 @@ class DescriptorIndex:
         if len(self.db.descriptors) == 0 or len(desc_q) == 0:
             z = np.zeros(0, np.int64)
             return QueryResult(z, z, z, np.zeros(0, np.float32))
-        if self.mesh is not None:
-            from .parallel.ring import ring_match
+        with span("service.query", rows=len(desc_q)):
+            if self.mesh is not None:
+                from .parallel.ring import ring_match
 
-            qi, ti, dist = ring_match(self.db.descriptors, desc_q, self.mesh,
-                                      self.axis_name, cross_check)
-        else:
-            m = match_brute_force(self._train(), desc_q, cross_check,
-                                  device=self.device)
-            qi, ti, dist = m.query_idx, m.train_idx, m.distance
-        row_frame, row_kp = self._row_maps()
-        return QueryResult(qi.astype(np.int64), row_frame[ti], row_kp[ti],
-                           dist.astype(np.float32))
+                qi, ti, dist = ring_match(self.db.descriptors, desc_q,
+                                          self.mesh, self.axis_name,
+                                          cross_check)
+            else:
+                m = match_brute_force(self._train(), desc_q, cross_check,
+                                      device=self.device)
+                qi, ti, dist = m.query_idx, m.train_idx, m.distance
+            row_frame, row_kp = self._row_maps()
+            with span("service.result"):
+                return QueryResult(qi.astype(np.int64), row_frame[ti],
+                                   row_kp[ti], dist.astype(np.float32))
 
     def query_image(self, img_u8, config: SiftConfig = DEFAULT_CONFIG,
                     features_limit: int | None = None,

@@ -1125,3 +1125,35 @@ def test_int8_matcher_on_card(dev, monkeypatch):
                 b = matcher.match_dense(train, query, cc, int8=True)
                 for x, y in zip(a, b):
                     assert torch.equal(x, y)
+
+
+def test_matcher_stage_clock_on_card(dev, monkeypatch):
+    """Under torch.profiler on the card, match_dense's chunks leave
+    `matcher.distance` / `matcher.select` spans with stream time, one per
+    stage, and the answer equals the untraced one bit for bit; outside a
+    session no stage clock is taken."""
+    from sift_features_tpu_torch.ops import matcher
+    from sift_features_tpu_torch.utils import profiling
+
+    rng = np.random.RandomState(8)
+    train = torch.from_numpy(rng.randint(0, 256, (5003, 128)).astype(np.uint8)).to(dev)
+    query = torch.from_numpy(rng.randint(0, 256, (300, 128)).astype(np.uint8)).to(dev)
+    monkeypatch.setattr(matcher, "TEMP_BYTES", 8 * 300 * 1000)
+    profiling.clear()
+    plain = matcher.match_dense(train, query)
+    assert {s.name for s in profiling.spans()} == {"matcher.prepare", "matcher.chunks"}
+    profiling.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        traced = matcher.match_dense(train, query)
+        torch.cuda.synchronize()
+    for a, b in zip(plain, traced):
+        assert torch.equal(a, b)
+    spans = {s.name: s for s in profiling.spans()}
+    chunks = spans["matcher.chunks"]
+    assert chunks.attrs == {"chunks": 6, "pairs": 300 * 5003}
+    for name in matcher.STAGES:
+        s = spans[name]
+        assert s.parent == chunks.id and s.attrs == {"chunks": 6}
+        assert s.stream_ms > 0
+    profiling.clear()

@@ -8,7 +8,7 @@ modules, on the CPU (no JAX compile):
 - the output tier: `compact_batch`, `render_matches`, `write_jpeg` (files
   byte-equal, gray and RGB);
 - the snapshot parsers and `load_golden` on a synthetic reference tree;
-- `extraction_metrics` on one port result;
+- `extraction_metrics` on one port result; a `span` in `device_trace`;
 - a failed native build raises, never falls back.
 
 The JPEGs are written by the tests with cv2 (about 96 x 128, one RGB, one
@@ -287,18 +287,24 @@ def test_extraction_metrics_match_jax(one_torch_thread):
 
 
 def test_stage_timer_and_trace(tmp_path):
-    from sift_features_tpu_torch.utils.profiling import StageTimer, device_trace
+    """`span` (which replaced the synchronising stage timer) inside
+    `device_trace`: the span is kept with its attributes, its stamps
+    enclose its block, and the Chrome trace holds it as a range."""
+    from sift_features_tpu_torch.utils import profiling
 
-    timer = StageTimer()
-    held = []
-    with device_trace(str(tmp_path)):
-        with timer.stage("matmul", held):
-            held.append({"y": [torch.ones(8, 8) @ torch.ones(8, 8)]})
-        with timer.stage("matmul"):
-            pass
-    assert set(timer.times) == {"matmul"} and timer.times["matmul"] > 0
-    assert "total" in timer.report()
+    profiling.clear()
+    with profiling.device_trace(str(tmp_path)):
+        with profiling.span("matmul", rows=8) as sp:
+            y = torch.ones(8, 8) @ torch.ones(8, 8)
+    assert float(y[0, 0]) == 8.0
+    got, = profiling.spans()
+    assert got is sp and sp.attrs == {"rows": 8} and sp.parent is None
+    assert 0 < sp.start_ns < sp.end_ns
+    assert profiling.totals() == {"matmul": (1, (sp.end_ns - sp.start_ns) * 1e-9)}
     assert os.path.getsize(tmp_path / "trace.json") > 0
+    with open(tmp_path / "trace.json") as f:
+        assert '"matmul"' in f.read()
+    profiling.clear()
 
 
 @pytest.mark.parametrize("module,error", [
