@@ -6,7 +6,8 @@
 Phases (any failure stops the script with a non-zero exit):
   1. device: name, count, nvidia-smi name and power limit;
   2. build: every CUDA source of sift_features_tpu_torch/csrc with nvcc, one
-     process per source, all at once; ptxas register and spill lines;
+     process per source, all at once (the extractor's five and the
+     matcher's); ptxas register and spill lines;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the inputs the main path gives it at octave 0 of a 1080p B=4 batch
      (captured from a run of the entry point), two launches compared byte
@@ -83,7 +84,14 @@ Phases (any failure stops the script with a non-zero exit):
       query_image, whose keypoints and descriptors equal extract's), 127
       and 255 match only rows of their frame at distance 0, the chunked
       matcher equals its one-chunk form on the first 8 frames, save / load
-      round-trips byte-equal;
+      round-trips byte-equal; then M1, the matcher kernel, against the
+      chunk loop on u8 rows at the new frame's query against the index and
+      at 8,192 query rows (the index cell's) against the index's rows and
+      as many seeded rows again: gated, best_train, distance and keep
+      bit-equal with and without the cross-check and one M1 launch per
+      match_dense call (launch counts reset just before); not gated, M1's
+      time, the loop's, its bound (f64 tensor operations at 66.9 TFLOP/s)
+      and the f64 GEMM alone over the same rows;
   13. stream: the I/O tier and the streaming executor. 62 1080p frames
       (the service phase's textures; 62 is not a multiple of B=4) written
       as JPEGs (quality 92) by the native encoder; gated: the native decode
@@ -159,6 +167,11 @@ H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 # --fmad=false, so each f32 multiply or add takes a whole FMA issue slot.
 # The operation counts below are such instructions.
 H100_F32_INSTR_PER_S = 33.5e12
+# f64 operations per second on the tensor cores (H100 SXM data sheet), what
+# M1's bound counts: 2 x 128 per distance
+H100_F64_TENSOR_PER_S = 66.9e12
+# query rows of the index cell's query (h100_bench), M1's second shape
+M1_QUERY_ROWS = 8192
 # the values of a candidate's 3 x 3 x 3 cube that a Newton step reads: the
 # centre, the 6 faces and the 12 edges (ops/extrema.py:newton_from_cubes;
 # the 8 corners are unused), what a refine kernel's bound counts a step
@@ -1937,14 +1950,101 @@ def int8_queries(torch, query, want, base_gb: float, reps: int = 3) -> dict:
             "mem_before_gb": base_gb}
 
 
+def m1_phase(torch, train_rows, query_rows, dev, n_query=M1_QUERY_ROWS):
+    """M1, the matcher kernel, against the chunk loop (kernel_route forced
+    False) on u8 rows on the card, at two shapes: the service's query (a
+    new frame's rows against the whole index) and n_query rows (the index
+    cell's, the new frame's repeated) against a map of the index's rows and
+    as many seeded random rows again. Gated: best_train, distance and keep
+    bit-equal with and without the cross-check, each match_dense call
+    launching M1 once and nothing else (counts reset at the phase's start).
+    Not gated: M1's launch time (CUDA events, mean of 3), the loop's, the
+    bound (f64 tensor operations, or bytes if more) and the f64 GEMM alone
+    over the same rows in the loop's chunks (the library yardstick).
+    Returns (M1's row at the second shape for the kernels line, with both
+    shapes' numbers under "shapes"; the launch counts of the gated calls)."""
+    from sift_features_tpu_torch.ops import matcher
+    from sift_features_tpu_torch.ops.kernels import build
+    from sift_features_tpu_torch.ops.kernels import matcher as kmatcher
+
+    def loop(tr, qu, cc=True):
+        saved = matcher.kernel_route
+        matcher.kernel_route = lambda *a: False
+        try:
+            return matcher.match_dense(tr, qu, cc)
+        finally:
+            matcher.kernel_route = saved
+
+    def gemm(tr, qu):
+        b = qu.double()
+        step = max(1, matcher.TEMP_BYTES // (8 * qu.shape[0]))
+        for t0 in range(0, tr.shape[0], step):
+            torch.matmul(b, tr[t0:t0 + step].double().T)
+
+    train = torch.as_tensor(train_rows, device=dev)
+    query = torch.as_tensor(query_rows, device=dev)
+    rng = np.random.RandomState(16)
+    big = torch.cat([train, torch.as_tensor(
+        rng.randint(0, 256, train.shape, dtype=np.uint8), device=dev)])
+    shapes = {"service": (train, query),
+              f"{n_query} x map": (big, query.repeat(
+                  -(-n_query // query.shape[0]), 1)[:n_query])}
+    build.reset_launches()
+    n_calls, kept = 0, {}
+    for what, (tr, qu) in shapes.items():
+        for cc in (True, False):
+            got = matcher.match_dense(tr, qu, cc)
+            torch.cuda.synchronize()
+            n_calls += 1
+            if build.LAUNCHES != {"M1": n_calls}:
+                raise SystemExit(f"chip_smoke: M1: {n_calls} match_dense calls "
+                                 f"on u8 rows launched {build.LAUNCHES}")
+            want = loop(tr, qu, cc)
+            for name, a, b in zip(("best_train", "distance", "keep"), got, want):
+                if a.dtype != b.dtype or not torch.equal(a, b):
+                    raise SystemExit(f"chip_smoke: M1 differs from the chunk "
+                                     f"loop in {name} at {what} "
+                                     f"(cross_check={cc})")
+            if cc:
+                kept[what] = int(got[2].sum())
+    launches = dict(build.LAUNCHES)
+    out = {}
+    for what, (tr, qu) in shapes.items():
+        n_t, n_q = tr.shape[0], qu.shape[0]
+        ops = 2.0 * tr.shape[1] * n_q * n_t
+        nbytes = tr.shape[1] * (n_t + n_q) + 8 * (n_t + n_q)
+        t_o = ops / H100_F64_TENSOR_PER_S * 1e3
+        t_b = nbytes / H100_BYTES_PER_S * 1e3
+        ms = time_ms(torch, lambda: kmatcher.match_keys(tr, qu), 3)
+        plain_ms = time_ms(torch, lambda: loop(tr, qu), 1, 0)
+        lib_ms = time_ms(torch, lambda: gemm(tr, qu), 1)
+        r = out[what] = {
+            "query_rows": n_q, "train_rows": n_t, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": max(t_o, t_b),
+            "bound_by": "f64 tensor operations" if t_o >= t_b else "bytes",
+            "gpairs_per_s": n_q * n_t / ms / 1e6, "kept": kept[what]}
+        print(f"[M1] {what}: {n_q} x {n_t} u8 rows: best_train, distance, keep "
+              f"bit-equal to the chunk loop with and without the cross-check, "
+              f"one launch a call; {ms:.1f} ms a launch "
+              f"({r['gpairs_per_s']:.1f} Gpairs/s, {r['bound_ms'] / ms:.1%} of "
+              f"the bound {r['bound_ms']:.1f} ms, {r['bound_by']}), loop "
+              f"{plain_ms:.1f} ms, f64 GEMM alone {lib_ms:.1f} ms; "
+              f"{kept[what]} kept", flush=True)
+    row = {k: v for k, v in out[what].items()
+           if k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+    row.update(max_abs_err=0.0, device_ms=None, shapes=out)
+    return row, launches
+
+
 def service_phase(torch, extractor, dev, smi: str) -> dict:
     """The descriptor-database service at full width: an index of 256
     1080p frames built by 64 add_frames calls at the main path's B=4 (the
     main path's kernels launched), queries of a new frame's descriptors
     against all of it (median of 3, distances/s, peak memory), the
     self-queries of frames 0 (through query_image), 127 and 255, the
-    chunked matcher against its one-chunk form on the first 8 frames, and
-    save / load byte-equal."""
+    chunked matcher against its one-chunk form on the first 8 frames, M1
+    against the chunk loop (m1_phase), and save / load byte-equal."""
     import tempfile
 
     from sift_features_tpu_torch.io.database import DescriptorDB
@@ -1995,6 +2095,8 @@ def service_phase(torch, extractor, dev, smi: str) -> dict:
     # the same query on the int8 path (SIFT_INT8_MATCH=1 around these
     # calls only): equal to the f64 path's, timed and its peak taken alike
     int8 = int8_queries(torch, lambda: idx.query(desc_new), r_new, base_gb)
+    # M1 against the chunk loop on the index's rows
+    m1_row, m1_launches = m1_phase(torch, db.descriptors, desc_new, dev)
 
     # self-queries: frame 0 through query_image, frames 127 and 255
     kps0, desc0, r0 = idx.query_image(service_frames(0, 1)[0])
@@ -2050,6 +2152,7 @@ def service_phase(torch, extractor, dev, smi: str) -> dict:
            "self_matches_kept": kept, "chunks_on_8_frames": n_chunks,
            "save_s": save_s, "load_s": load_s,
            "launches_in_first_add_frames": launches,
+           "m1": m1_row, "m1_launches": m1_launches,
            "phase_s": time.perf_counter() - t_phase, "card": smi}
     print(f"[service] {SERVICE_FRAMES} frames in {len(add_ms)} add_frames calls "
           f"of B={B}: median {out['add_frames_median_ms']:.1f} ms a call; {n_rows} "
@@ -2875,7 +2978,7 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    logs = build.build_all()
+    logs = build.build_all(build.SOURCES + ("matcher",))
     print(f"[build] {len(logs)} sources compiled in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for src, log in logs.items():
@@ -3042,6 +3145,7 @@ def main() -> int:
 
     # 12. the descriptor-database service at 256 frames
     service = service_phase(torch, extractor, dev, smi)
+    rows["M1"] = service["m1"]
     torch.cuda.empty_cache()
 
     # 13. the I/O tier and the streaming executor on 62 1080p frames
@@ -3072,6 +3176,9 @@ def main() -> int:
     for k in ("K1:bf16", "K2:bf16", "K4:bf16", "K5:bf16", "K6:bf16"):
         paths[k] = ("storage_dtype=bfloat16 main step",
                     storage["bfloat16"]["launches"])
+    paths["M1"] = ("service phase: match_dense on u8 rows, the new frame's "
+                   f"query and {M1_QUERY_ROWS} x map, with and without "
+                   "the cross-check", service["m1_launches"])
     paths["K1:split"] = ("storage_dtype=split main step",
                          storage["split"]["launches"])
     paths["K1:g16"] = ("gather_dtype=bfloat16 main step",

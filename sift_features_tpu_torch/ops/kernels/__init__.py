@@ -11,8 +11,10 @@ reads bf16 planes, `K1:split` / `K9:split` store bf16 Gaussian levels and
 an f32 DoG, `K1:g16` / `K9:g16` add a bf16 copy of the Gaussian levels.
 """
 
-# name -> (CUDA source, the TPU kernel it replaces)
+# name -> (CUDA source, the TPU kernel it replaces; None where it replaces
+# none: M1, the matcher, which the JAX package leaves to XLA)
 KERNELS = {
+    "M1": ("sift_features_tpu_torch/csrc/matcher.cu", None),
     "K1": ("sift_features_tpu_torch/csrc/pyramid.cu",
            "sift_features_tpu/ops/pallas/pyramid_kernel.py:352"),
     "K2": ("sift_features_tpu_torch/csrc/extrema.cu",

@@ -4,10 +4,11 @@ Every kernel lives in one `csrc/<name>.cu` file with a plain C interface
 and is compiled by `nvcc` into its own shared library under
 `build/torch_kernels/` of the checkout, at the first call that needs it,
 and loaded with ctypes (no PyTorch headers, so a build takes seconds).
-All sources build together, one `nvcc` process each, so a fresh
-checkout pays for one parallel build. Libraries are named by a hash of
-their sources and flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is. A failed build raises with nvcc's output; nothing
+The extractor's sources (`SOURCES`) build together, one `nvcc` process
+each, so a fresh checkout pays for one parallel build; the matcher's
+(`matcher.cu`, M1) builds alone, since a query runs no extractor kernel.
+Libraries are named by a hash of their sources and flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is. A failed build raises with nvcc's output; nothing
 runs without its kernel.
 
 `LAUNCHES` counts, per kernel, the calls of its wrapper that launched it
@@ -118,13 +119,13 @@ def build_all(names=SOURCES) -> dict[str, str]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, building all sources first if
-    this one is missing."""
+    """The loaded library of csrc/<name>.cu, building it first if it is
+    missing: with every missing extractor source if it is one of them."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             if not os.path.exists(_lib_path(name)):
-                build_all()
+                build_all(SOURCES if name in SOURCES else (name,))
             lib = ctypes.CDLL(_lib_path(name))
             _libs[name] = lib
         return lib

@@ -2,8 +2,7 @@
 
 Counterpart of sift_features_tpu/ops/matcher.py (`_match_jit`, f32 path, and
 `match_brute_force`): BFMatcher(NORM_L2, crossCheck=True) semantics, with
-||a - b||^2 = ||a||^2 + ||b||^2 - 2 a.b. The distance product is
-`torch.matmul`, one per chunk of train rows (the JAX package leaves it to
+||a - b||^2 = ||a||^2 + ||b||^2 - 2 a.b (the JAX package leaves it to
 XLA, not to a kernel of its own). Ties resolve to the lowest index, as
 `torch.argmin` does.
 
@@ -17,9 +16,26 @@ product and partial sum is an integer below 2^24 (128 x 255^2 =
 8,323,200), exact in float64 as in f32; on f32 input each product of two
 values is exact in float64 and only the sums round.
 
-The train rows go in chunks (`TEMP_BYTES`), so that a query against a
-database of millions of rows (`service.DescriptorIndex`) holds a few (Q,
-chunk) temporaries, never the whole (Q, T) matrix: a one-frame 1080p query
+Routes, chosen from the input itself (its device, dtypes and width):
+- u8 x u8 rows of at most 128 bytes on a CUDA device, the int8 opt-in
+  unset: the hand-written kernel
+  M1 (ops/kernels/matcher.py, csrc/matcher.cu), one launch for the whole
+  train set. It computes every distance in float64 on the tensor cores and
+  keeps, per query and per train row, the packed key (f32 bits of d^2) << 32
+  | index of its minimum. The (Q, T) distances never reach device memory.
+  A u64 min over the keys gives the same tie rule, so the result equals
+  the chunk loop's bit for bit. Anything that goes wrong there raises.
+- Everything else takes the chunk loop: CPU tensors (M1's plain version),
+  f32 input (no caller on the main path holds f32 rows, and M1's
+  order of summation would move their last bits), u8 rows wider than 128
+  bytes (M1's keys hold d^2 in 23 bits; no SIFT row is wider), and the
+  int8 opt-in. The
+  ring matcher (`parallel/ring.py`) calls the loop's `_chunk_d2` itself.
+
+The chunk loop computes the product with `torch.matmul`, one per chunk of
+train rows (`TEMP_BYTES`), so that a query against a database of millions
+of rows holds a few (Q, chunk) temporaries, never the whole (Q, T) matrix:
+a one-frame 1080p query
 (~8.7k rows) against 256 frames (~2.2M rows) would need ~155 GB for the
 f64 distances alone. Each chunk's per-train argmin over all queries is
 exact on its own. The per-query best runs across the chunks in ascending
@@ -27,8 +43,8 @@ order and moves only on a strictly smaller f32 distance, so ties still go
 to the lowest global index (jnp.argmin's rule), and the result equals the
 one-chunk form's bit for bit wherever a chunk's distances are those of the
 whole matrix: always on u8 descriptors, whose sums are exact in any order.
-The ring matcher (`parallel/ring.py`) streams database shards with
-running minima by the same rule.
+The ring matcher streams database shards with running minima by the same
+rule.
 
 SIFT_INT8_MATCH=1 (read at each call, as the JAX package reads it outside
 `jit`) takes JAX's opt-in int8 path for u8 x u8 input (JAX
@@ -50,6 +66,7 @@ import torch
 
 from ..utils.device import resolve_device
 from ..utils.profiling import span, stage_clock
+from .kernels import matcher as kmatcher
 from .util import sqrt_f32
 
 # Bytes of one (Q, chunk) float64 temporary of the distance matrix: the
@@ -58,9 +75,10 @@ from .util import sqrt_f32
 # 1024-row query (the main step's) takes up to 65,536 train rows at once.
 TEMP_BYTES = 1 << 29
 
-# the stages of a chunk that a profiled query times on the card's stream
-# (launch gaps included): the distances (`_chunk_d2`), then the argmins,
-# the running best and the cross-check's per-train argmin
+# the stages that a profiled query times on the card's stream (launch gaps
+# included): the distances (M1's launch, or each chunk's `_chunk_d2`), then
+# the selection (M1's keys unpacked and cross-checked, or each chunk's
+# argmins, running best and per-train argmin)
 STAGES = ("matcher.distance", "matcher.select")
 
 
@@ -119,20 +137,30 @@ def int8_match_enabled() -> bool:
     return bool(int(os.environ.get("SIFT_INT8_MATCH", "0")))
 
 
+def kernel_route(device: torch.device, train_dtype: torch.dtype,
+                 query_dtype: torch.dtype, width: int, int8: bool) -> bool:
+    """Whether match_dense takes M1 (module note): u8 x u8 rows of at most
+    `kmatcher.MAX_DIM` bytes on a CUDA device, without the int8 opt-in."""
+    return (device.type == "cuda" and not int8 and width <= kmatcher.MAX_DIM
+            and train_dtype == query_dtype == torch.uint8)
+
+
 def match_dense(d_train: torch.Tensor, d_query: torch.Tensor,
                 cross_check: bool = True, int8: bool = False):
     """(T, D), (Q, D) -> (best_train (Q,) int64, distance (Q,) f32, keep (Q,)
     bool); keep marks mutual nearest neighbours when cross_check. The query
-    rows move to the train rows' device; the train rows go in chunks of
-    `TEMP_BYTES` (module note). int8=True on u8 x u8 input takes the int8
-    path (module note), with the same result. With no row on either side no
-    query row is kept.
+    rows move to the train rows' device. u8 x u8 rows of at most 128 bytes
+    on a CUDA device take M1, anything else the chunk loop (module note);
+    int8=True on u8 x u8 input takes the loop's int8 path, with the same
+    result. With no row on either
+    side no query row is kept.
 
     Spans `matcher.prepare` (the query to the device, its norms) and
-    `matcher.chunks` (the chunk loop and the cross-check; attributes
-    `chunks` and `pairs`, the Q x T distances), under a profiler session on
-    the card with the chunks' stream time in `matcher.distance` and
-    `matcher.select` (utils/profiling.py)."""
+    `matcher.chunks` (the distances, the selection and the cross-check;
+    attributes `chunks`, `pairs` (the Q x T distances) and `route`,
+    "kernel" for M1 or "plain" for the loop). Under a profiler session on
+    the card, the stream time of `matcher.distance` and `matcher.select`
+    goes in child spans of `matcher.chunks` (utils/profiling.py)."""
     n_q, n_t = d_query.shape[0], d_train.shape[0]
     dev = d_train.device
     if n_q == 0 or n_t == 0:
@@ -140,6 +168,20 @@ def match_dense(d_train: torch.Tensor, d_query: torch.Tensor,
                 torch.full((n_q,), float("inf"), dtype=torch.float32, device=dev),
                 torch.zeros(n_q, dtype=torch.bool, device=dev))
     int8 = int8 and d_train.dtype == d_query.dtype == torch.uint8
+    if kernel_route(dev, d_train.dtype, d_query.dtype, d_train.shape[1], int8):
+        with span("matcher.prepare", rows=n_q):
+            d_query = d_query.to(dev).contiguous()
+        with span("matcher.chunks", chunks=1, pairs=n_q * n_t, route="kernel"):
+            clock = stage_clock(dev, STAGES, "chunks")
+            if clock is not None:
+                clock.mark()
+            keys = kmatcher.match_keys(d_train.contiguous(), d_query)
+            if clock is not None:
+                clock.mark()
+            out = kmatcher.keys_to_matches(*keys, cross_check)
+            if clock is not None:
+                clock.mark()
+            return out
     with span("matcher.prepare", rows=n_q):
         d_query = d_query.to(dev)
         if int8:
@@ -152,7 +194,8 @@ def match_dense(d_train: torch.Tensor, d_query: torch.Tensor,
             b = d_query.to(torch.float64)
             bb = torch.sum(b * b, dim=1)
     n_chunks = -(-n_t // rows)
-    with span("matcher.chunks", chunks=n_chunks, pairs=n_q * n_t):
+    with span("matcher.chunks", chunks=n_chunks, pairs=n_q * n_t,
+              route="plain"):
         clock = stage_clock(dev, STAGES, "chunks")
         best_query = []
         for t0 in range(0, n_t, rows):

@@ -17,6 +17,12 @@ the dense matcher's chunks, and ties go to the lowest global index by the
 blocks arrive in. So the ring equals the dense matcher bit for bit on u8
 and on integer-valued f32 descriptors, whose sums are exact in any order.
 
+The ring keeps the chunk loop's `_chunk_d2` on the card too, where the dense
+matcher takes M1 (ops/kernels/matcher.py): each hop masks the distances
+by frame tags and valid rows and carries running column minima from rank
+to rank, and M1 takes neither masks nor minima from outside. Its result
+is the same either way: M1 equals the chunk loop bit for bit.
+
 u8 blocks travel as u8 (a quarter of f32's bytes). A hop is one u8 buffer
 per rank (`mesh.shift`): the column minima, the column winners, the frame
 tags if any, the rows and their valid mask, packed 4-byte fields first.

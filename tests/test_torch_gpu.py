@@ -1128,10 +1128,11 @@ def test_int8_matcher_on_card(dev, monkeypatch):
 
 
 def test_matcher_stage_clock_on_card(dev, monkeypatch):
-    """Under torch.profiler on the card, match_dense's chunks leave
+    """Under torch.profiler on the card, match_dense leaves
     `matcher.distance` / `matcher.select` spans with stream time, one per
     stage, and the answer equals the untraced one bit for bit; outside a
-    session no stage clock is taken."""
+    session no stage clock is taken. u8 rows take M1 (one launch, route
+    "kernel"), f32 rows the chunk loop (six chunks, route "plain")."""
     from sift_features_tpu_torch.ops import matcher
     from sift_features_tpu_torch.utils import profiling
 
@@ -1139,21 +1140,153 @@ def test_matcher_stage_clock_on_card(dev, monkeypatch):
     train = torch.from_numpy(rng.randint(0, 256, (5003, 128)).astype(np.uint8)).to(dev)
     query = torch.from_numpy(rng.randint(0, 256, (300, 128)).astype(np.uint8)).to(dev)
     monkeypatch.setattr(matcher, "TEMP_BYTES", 8 * 300 * 1000)
+    for rows, chunks, route in ((train, 1, "kernel"), (train.float(), 6, "plain")):
+        q = query if rows.dtype == torch.uint8 else query.float()
+        profiling.clear()
+        plain = matcher.match_dense(rows, q)
+        assert {s.name for s in profiling.spans()} == {"matcher.prepare", "matcher.chunks"}
+        profiling.clear()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]):
+            traced = matcher.match_dense(rows, q)
+            torch.cuda.synchronize()
+        for a, b in zip(plain, traced):
+            assert torch.equal(a, b)
+        spans = {s.name: s for s in profiling.spans()}
+        ch = spans["matcher.chunks"]
+        assert ch.attrs == {"chunks": chunks, "pairs": 300 * 5003, "route": route}
+        for name in matcher.STAGES:
+            s = spans[name]
+            assert s.parent == ch.id and s.attrs == {"chunks": chunks}
+            assert s.stream_ms > 0
     profiling.clear()
-    plain = matcher.match_dense(train, query)
-    assert {s.name for s in profiling.spans()} == {"matcher.prepare", "matcher.chunks"}
-    profiling.clear()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]):
-        traced = matcher.match_dense(train, query)
-        torch.cuda.synchronize()
-    for a, b in zip(plain, traced):
-        assert torch.equal(a, b)
-    spans = {s.name: s for s in profiling.spans()}
-    chunks = spans["matcher.chunks"]
-    assert chunks.attrs == {"chunks": 6, "pairs": 300 * 5003}
-    for name in matcher.STAGES:
-        s = spans[name]
-        assert s.parent == chunks.id and s.attrs == {"chunks": 6}
-        assert s.stream_ms > 0
-    profiling.clear()
+
+
+def _loop_match(monkeypatch, train, query, cc=True):
+    """match_dense's chunk loop on the card: the route M1 replaces."""
+    from sift_features_tpu_torch.ops import matcher
+
+    with monkeypatch.context() as m:
+        m.setattr(matcher, "kernel_route", lambda *a: False)
+        return matcher.match_dense(train, query, cc)
+
+
+def _check_m1(monkeypatch, train, query):
+    """M1 (one launch a call) against the chunk loop, bit for bit, with and
+    without the cross-check; returns M1's cross-checked answer."""
+    from sift_features_tpu_torch.ops import matcher
+    from sift_features_tpu_torch.ops.kernels import build
+
+    out = None
+    for cc in (True, False):
+        want = _loop_match(monkeypatch, train, query, cc)
+        n = build.LAUNCHES.get("M1", 0)
+        got = matcher.match_dense(train, query, cc)
+        assert build.LAUNCHES.get("M1", 0) == n + 1
+        for name, a, b in zip(("best_train", "distance", "keep"), got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), (
+                name, tuple(train.shape), tuple(query.shape), cc)
+        out = got if cc else out
+    return out
+
+
+def _u8_rows(gen, n, dev, width=128):
+    return torch.randint(0, 256, (n, width), generator=gen, dtype=torch.uint8,
+                         device=dev)
+
+
+M1_SHAPES = ([(q, t) for q in (1, 17, 1000, 8192)
+              for t in (1, 129, 100003, 1048576)]
+             + [(1024, 1100), (20000, 100003)])
+
+
+def test_m1_matches_loop_on_card(dev, monkeypatch):
+    """M1 equals the chunk loop bit for bit (best_train, distance, keep, with
+    and without the cross-check) at Q in {1, 17, 1000, 8192} x T in {1, 129,
+    100003, 1048576}, the video step's ~1k x ~1k, a query of 20,000 rows
+    (three passes of the kernel's 8,192) and rows of 64 bytes; a quarter of
+    the queries are copies of train rows, so the cross-check keeps some.
+    Rows of 130 bytes, wider than M1's keys hold, take the loop (no launch)
+    and equal the CPU's answer."""
+    from sift_features_tpu_torch.ops import matcher
+    from sift_features_tpu_torch.ops.kernels import build
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    for n_q, n_t in M1_SHAPES:
+        train, query = _u8_rows(gen, n_t, dev), _u8_rows(gen, n_q, dev)
+        k = n_q // 4
+        if k:
+            idx = torch.randint(0, n_t, (k,), generator=gen, device=dev)
+            query[:k] = train[idx]
+        _, _, keep = _check_m1(monkeypatch, train, query)
+        assert not k or keep.any()
+    train, query = _u8_rows(gen, 1000, dev, 64), _u8_rows(gen, 300, dev, 64)
+    query[:50] = train[200:250]
+    _check_m1(monkeypatch, train, query)
+    train, query = _u8_rows(gen, 500, dev, 130), _u8_rows(gen, 200, dev, 130)
+    query[:50] = train[100:150]
+    n = build.LAUNCHES.get("M1", 0)
+    got = matcher.match_dense(train, query)
+    assert build.LAUNCHES.get("M1", 0) == n
+    for a, b in zip(got, matcher.match_dense(train.cpu(), query.cpu())):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+def test_m1_ties_on_card(dev, monkeypatch):
+    """Planted ties: the lowest index wins on both sides, across tiles,
+    blocks of queries, blocks of the grid and passes. Duplicated train
+    rows (the first copy wins a query), duplicated query rows (the first
+    copy keeps the cross-check), and all-equal rows (every distance tied:
+    train row 0 wins every query, query 0 every train row)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(61)
+    train, query = _u8_rows(gen, 132 * 64 * 2 + 5, dev), _u8_rows(gen, 9000, dev)
+    for dup in (70, 8000, 16000, 16900):
+        train[dup] = train[3]
+    query[:8] = train[3]
+    query[20] = train[100]
+    dups = [130, 4000, 8191, 8192, 8999]
+    query[dups] = query[20].clone()
+    bt, dist, keep = _check_m1(monkeypatch, train, query)
+    assert bt[:8].eq(3).all() and dist[:8].eq(0).all()
+    assert keep[0] and not keep[1:8].any()
+    assert bt[20] == 100 and bt[dups].eq(100).all()
+    assert keep[20] and not keep[dups].any()
+    row = _u8_rows(gen, 1, dev)
+    for n_t, n_q in ((130, 260), (1, 9000), (9000, 1)):
+        train = row.expand(n_t, -1).contiguous()
+        query = _u8_rows(gen, 1, dev).expand(n_q, -1).contiguous()
+        bt, _, keep = _check_m1(monkeypatch, train, query)
+        assert bt.eq(0).all() and keep[0] and keep.sum() == 1
+
+
+def test_m1_service_query_on_card(dev, monkeypatch):
+    """DescriptorIndex.query on a small seeded map takes M1 (one launch a
+    query) and gives the chunk loop's QueryResult."""
+    from sift_features_tpu_torch.ops import matcher
+    from sift_features_tpu_torch.ops.kernels import build
+    from sift_features_tpu_torch.service import DescriptorIndex
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    n_f, per = 24, 700
+    desc = _u8_rows(gen, n_f * per, dev).view(n_f, per, 128)
+    kps = torch.rand((n_f, per, 5), generator=gen, device=dev)
+    valid = torch.rand((n_f, per), generator=gen, device=dev) < 0.9
+    idx = DescriptorIndex(device=dev)
+    idx.add_batch_result({"kps": kps, "desc": desc, "valid": valid},
+                         np.arange(100, 100 + n_f, dtype=np.int64))
+    q = desc[3][:500].cpu().numpy().copy()
+    q[250:] = _u8_rows(gen, 250, dev).cpu().numpy()
+    for _ in range(2):
+        n = build.LAUNCHES.get("M1", 0)
+        got = idx.query(q)
+        assert build.LAUNCHES.get("M1", 0) == n + 1
+    with monkeypatch.context() as m:
+        m.setattr(matcher, "kernel_route", lambda *a: False)
+        want = idx.query(q)
+    for f in ("query_idx", "frame_id", "keypoint_idx", "distance"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+    assert len(got.query_idx) > 100 and (got.frame_id == 103).sum() > 100

@@ -178,3 +178,210 @@ def test_int8_matcher_matches_jax(monkeypatch, chunk_rows):
         monkeypatch.setattr(matcher, "_chunk_d2_int8", real)
         assert match_brute_force(train, query, cc, device="cpu") \
             .distance.tobytes() == m.distance.tobytes()
+
+
+# --- M1 (ops/kernels/matcher.py, csrc/matcher.cu) ---------------------------
+
+M32 = (1 << 32) - 1
+
+
+def _f32_bits(d2: np.ndarray) -> np.ndarray:
+    return d2.astype(np.float32).view(np.uint32).astype(np.uint64)
+
+
+def _m1_model(train, query, bt, bq, n_blocks, qmax, groups=2):
+    """A plain model of M1's reduction (csrc/matcher.cu), in its integer
+    arithmetic: the accumulator's low word lo = 2^6 (2^25 + ||a||^2 - 2 a.b),
+    the 32-bit keys lo + column and lo + 2^6 (||b||^2 - 2^25) + row (that is
+    d^2 << 6 | row) taken mod 2^32, padding rows of norm 2^24 at the ragged
+    ends; the train tiles of bt rows split into n_blocks contiguous ranges,
+    each sweeping blocks of bq queries in passes of qmax queries, the blocks
+    dealt round-robin to `groups` groups that each keep their own running
+    column minima (merged at the tile's end), as many blocks to each group
+    (the last ones all padding); the packed u64 keys min-merged across
+    tiles, blocks and passes. Returns (row_key, col_key) as int64. The keys'
+    6 index bits hold a tile of at most 64 train rows and a block of at
+    most 64 queries, the kernel's sizes."""
+    assert bt <= 64 and bq <= 64
+    n_t, n_q = len(train), len(query)
+    n_tiles = -(-n_t // bt)
+    a = np.zeros((n_tiles * bt, train.shape[1]), np.int64)
+    a[:n_t] = train
+    aa = (a * a).sum(1)
+    aa[n_t:] = 1 << 24
+    row_key = np.full(n_q, np.uint64(2 ** 64 - 1))
+    col_key = np.zeros(n_t, np.uint64)
+    for q0 in range(0, n_q, qmax):
+        nq = min(qmax, n_q - q0)
+        nqb = -(-nq // (bq * groups)) * groups
+        b = np.zeros((nqb * bq, train.shape[1]), np.int64)
+        b[:nq] = query[q0:q0 + nq]
+        bb = (b * b).sum(1)
+        bb[nq:] = 1 << 24
+        for blk in range(n_blocks):
+            skey = np.full(nq, np.uint64(2 ** 64 - 1))
+            for tile in range(blk * n_tiles // n_blocks,
+                              (blk + 1) * n_tiles // n_blocks):
+                cols = slice(tile * bt, (tile + 1) * bt)
+                best = []
+                for grp in range(groups):
+                    best_d = np.full(bt, M32, np.int64)
+                    best_q = np.zeros(bt, np.int64)
+                    for qb in range(grp, nqb, groups):
+                        rows = slice(qb * bq, (qb + 1) * bq)
+                        lo = ((1 << 25) + aa[None, cols]
+                              - 2 * (b[rows] @ a[cols].T)) << 6
+                        assert lo.min() >= 0 and lo.max() < 1 << 32
+                        r = (lo + np.arange(bt)[None]).min(1)
+                        d = ((r >> 6) + bb[rows] - (1 << 25)) & M32
+                        key = (_f32_bits(d) << np.uint64(32)) | (
+                            tile * bt + (r & 63)).astype(np.uint64)
+                        n_valid = max(0, min(bq, nq - qb * bq))
+                        sl = slice(qb * bq, qb * bq + n_valid)
+                        skey[sl] = np.minimum(skey[sl], key[:n_valid])
+                        c = ((lo + (((bb[rows] - (1 << 25)) << 6)
+                                    + np.arange(bq))[:, None]) & M32).min(0)
+                        better = (c >> 6) < best_d
+                        best_d = np.where(better, c >> 6, best_d)
+                        best_q = np.where(better, q0 + qb * bq + (c & 63), best_q)
+                    best.append((best_d, best_q))
+                best_d, best_q = best[0]
+                for od, oq in best[1:]:
+                    take = (od < best_d) | ((od == best_d) & (oq < best_q))
+                    best_d = np.where(take, od, best_d)
+                    best_q = np.where(take, oq, best_q)
+                t_valid = max(0, min(bt, n_t - tile * bt))
+                key = (_f32_bits(best_d) << np.uint64(32)) | best_q.astype(np.uint64)
+                ts = slice(tile * bt, tile * bt + t_valid)
+                col_key[ts] = key[:t_valid] if q0 == 0 else np.minimum(
+                    col_key[ts], key[:t_valid])
+            row_key[q0:q0 + nq] = np.minimum(row_key[q0:q0 + nq], skey)
+    return (torch.from_numpy(row_key.view(np.int64)),
+            torch.from_numpy(col_key.view(np.int64)))
+
+
+def _tie_cases():
+    """_u8_case's exact matches and duplicated rows on both sides, and a
+    case of all-equal rows, every distance tied."""
+    yield _u8_case()
+    rng = np.random.RandomState(10)
+    row = rng.randint(0, 256, (1, 128)).astype(np.uint8)
+    yield np.repeat(row, 70, 0), np.repeat(rng.randint(0, 256, (1, 128))
+                                           .astype(np.uint8), 45, 0)
+
+
+@pytest.mark.parametrize("split", [(64, 64, 1, 8192), (64, 64, 3, 8192),
+                                   (7, 13, 4, 50), (50, 60, 2, 8192, 1),
+                                   (1, 1, 2, 3, 3)],
+                         ids=["kernel", "kernel-3-blocks", "ragged-passes",
+                              "ragged-tiles", "single-rows"])
+def test_m1_model_equals_chunk_loop(split):
+    """M1's reduction, modelled in plain integer arithmetic with its packed
+    keys, min-merged over train-range and query-block splits (and passes),
+    unpacked by the wrapper module's `keys_to_matches`, equals the chunk loop bit for bit on
+    planted ties, with and without the cross-check."""
+    from sift_features_tpu_torch.ops.kernels import matcher as kmatcher
+
+    for train, query in _tie_cases():
+        keys = _m1_model(train, query, *split)
+        t, q = torch.from_numpy(train), torch.from_numpy(query)
+        for cc in (True, False):
+            want = match_dense(t, q, cc)
+            got = kmatcher.keys_to_matches(*keys, cc)
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+        if len(set(map(bytes, train))) == 1:     # all-equal rows
+            bt, _, keep = match_dense(t, q)
+            assert bt.eq(0).all() and keep.sum() == 1 and keep[0]
+
+
+def test_m1_dispatch(monkeypatch):
+    """The route follows the input: u8 x u8 rows of at most 128 bytes on a
+    CUDA device without the int8 opt-in take M1, everything else the chunk
+    loop. With the rule evaluated as on a CUDA device, u8 calls the M1
+    wrapper (faked here by the model) once and never the loop, and its
+    `matcher.chunks` span says route "kernel"; f32, rows wider than 128
+    bytes and the int8 opt-in run the loop."""
+    from sift_features_tpu_torch.ops import matcher
+    from sift_features_tpu_torch.utils import profiling
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    u8, f32 = torch.uint8, torch.float32
+    assert matcher.kernel_route(cuda, u8, u8, 128, False)
+    assert matcher.kernel_route(cuda, u8, u8, 1, False)
+    assert not matcher.kernel_route(cuda, u8, u8, 129, False)
+    assert not matcher.kernel_route(cuda, u8, u8, 128, True)
+    assert not matcher.kernel_route(cuda, f32, f32, 128, False)
+    assert not matcher.kernel_route(cuda, u8, f32, 128, False)
+    assert not matcher.kernel_route(cpu, u8, u8, 128, False)
+
+    train, query = _u8_case()
+    t, q = torch.from_numpy(train), torch.from_numpy(query)
+    want = match_dense(t, q)
+    calls = {"kernel": 0, "loop": 0}
+    real_route, real_chunk = matcher.kernel_route, matcher._chunk_d2
+
+    def fake_keys(tr, qu):
+        calls["kernel"] += 1
+        return _m1_model(tr.numpy(), qu.numpy(), 64, 64, 2, 8192)
+
+    def loop_chunk(*a):
+        calls["loop"] += 1
+        return real_chunk(*a)
+
+    def loop_chunk_int8(*a):
+        calls["loop"] += 1
+        return real_int8(*a)
+
+    real_int8 = matcher._chunk_d2_int8
+    monkeypatch.setattr(matcher, "kernel_route",
+                        lambda dev, td, qd, w, i8: real_route(cuda, td, qd,
+                                                              w, i8))
+    monkeypatch.setattr(matcher.kmatcher, "match_keys", fake_keys)
+    monkeypatch.setattr(matcher, "_chunk_d2", loop_chunk)
+    monkeypatch.setattr(matcher, "_chunk_d2_int8", loop_chunk_int8)
+
+    def spans_route():
+        return [s for s in profiling.spans()
+                if s.name == "matcher.chunks"][-1].attrs["route"]
+
+    profiling.clear()
+    got = match_dense(t, q)
+    assert calls == {"kernel": 1, "loop": 0}
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    spans = {s.name: s for s in profiling.spans()}
+    assert spans["matcher.chunks"].attrs == {"chunks": 1, "pairs": 300 * 200,
+                                             "route": "kernel"}
+    match_dense(t.float(), q.float())
+    assert calls == {"kernel": 1, "loop": 1}
+    wide = match_dense(torch.cat([t, t[:, :2]], 1), torch.cat([q, q[:, :2]], 1))
+    assert calls == {"kernel": 1, "loop": 2}
+    assert spans_route() == "plain" and wide[0].dtype == torch.int64
+    monkeypatch.setenv("SIFT_INT8_MATCH", "1")
+    m = match_brute_force(train, query, device="cpu")
+    assert calls == {"kernel": 1, "loop": 3}
+    np.testing.assert_array_equal(m.train_idx, want[0].numpy()[m.query_idx])
+    profiling.clear()
+
+
+def test_m1_wrapper_refuses(monkeypatch):
+    """The M1 wrapper raises on CPU, non-contiguous and non-u8 rows, and on
+    rows wider than its keys hold, before any build."""
+    from sift_features_tpu_torch.ops.kernels import build
+    from sift_features_tpu_torch.ops.kernels import matcher as kmatcher
+
+    def no_build(*a, **k):
+        raise AssertionError("the wrapper built a library")
+
+    monkeypatch.setattr(build, "build_all", no_build)
+    train, query = (torch.from_numpy(x) for x in _u8_case())
+    cases = [(train, query, "CUDA"),
+             (train.t().contiguous().t(), query, "contiguous"),
+             (train[:, ::2], query[:, ::2], "contiguous"),
+             (train.float(), query, "uint8"),
+             (train, query.to(torch.int8), "uint8"),
+             (torch.cat([train, train], 1), torch.cat([query, query], 1), "width")]
+    for tr, qu, what in cases:
+        with pytest.raises(ValueError, match=what):
+            kmatcher.match_keys(tr, qu)

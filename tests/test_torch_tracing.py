@@ -80,7 +80,8 @@ def test_spans_nest_under_one_request():
         assert first.start_ns <= a.start_ns <= a.end_ns <= first.end_ns
     assert [m.attrs["cache_hit"] for m in s["service.row_maps"]] == [False, True]
     assert "matcher.distance" not in s and "matcher.select" not in s
-    assert [c.attrs for c in s["matcher.chunks"]] == [{"chunks": 1, "pairs": 21 * 120}] * 2
+    assert [c.attrs for c in s["matcher.chunks"]] == [
+        {"chunks": 1, "pairs": 21 * 120, "route": "plain"}] * 2
     totals = profiling.totals()
     assert set(totals) == set(s)
     for name, got in s.items():
@@ -140,8 +141,9 @@ def test_spans_on_the_profiler_clock(tmp_path):
 @pytest.mark.parametrize("int8", [False, True])
 def test_chunk_counters_and_no_clock_without_profiler(monkeypatch, int8):
     """At chunks of 7 train rows the `matcher.chunks` span counts
-    ceil(T / 7) chunks and Q x T pairs; one prepare and one chunks span,
-    and no stage clock is taken with no profiler running."""
+    ceil(T / 7) chunks and Q x T pairs, and names the route (the loop, on
+    the CPU); one prepare and one chunks span, and no stage clock is taken
+    with no profiler running."""
     rng = np.random.RandomState(4)
     t = torch.from_numpy(rng.randint(0, 256, (95, 128)).astype(np.uint8))
     q = torch.from_numpy(rng.randint(0, 256, (40, 128)).astype(np.uint8))
@@ -161,7 +163,8 @@ def test_chunk_counters_and_no_clock_without_profiler(monkeypatch, int8):
     s = _by_name(profiling.spans())
     assert set(s) == {"matcher.prepare", "matcher.chunks"}
     chunks, = s["matcher.chunks"]
-    assert chunks.attrs == {"chunks": -(-95 // rows), "pairs": 40 * 95}
+    assert chunks.attrs == {"chunks": -(-95 // rows), "pairs": 40 * 95,
+                            "route": "plain"}
     whole = matcher.match_dense(t, q.float(), True)
     for a, b in zip(got, whole):
         assert torch.equal(a, b)
