@@ -5,9 +5,17 @@ and two argmins, sift_features_tpu/ops/matcher.py:_match_jit). Its plain
 version is the chunk loop of ops/matcher.py:match_dense, which the CPU
 takes. The CUDA kernel is csrc/matcher.cu. Its note gives the bound and
 the design: float64 on the tensor cores, with one block per SM over a range
-of train rows. The bound is float64 operations, 1,166 ms for 8,192 query
-rows against 37.2M train rows. The (Q, T) distances never reach device
-memory.
+of train rows. Every distance is exact: each of a pair's 128 products is a
+float64 multiply-add on the tensor cores. Two query rows share each f64
+operand, B = b1 + 2^24 b2, against the train operand -2 a; the accumulator
+starts at 2^52 + G (1 + 2^24), G = ||a||^2 + 2^23, and ends holding two
+24-bit fields F = d^2 - ||b||^2 + 2^23, one a query row, which the kernel
+reads from the double's words. Padding train rows start at G = 2^24 - 1,
+above every real field; padding query rows are zero rows of norm 2^23,
+above every real d^2. The bound is float64 operations: the pairs' work is
+1,166 ms for 8,192 query rows against 37.2M train rows, and the packed
+products M1 runs half of that, 583 ms. The (Q, T) distances never reach
+device memory.
 
 The kernel returns packed keys, (f32 bits of d^2) << 32 | index, as int64
 (never negative: a distance's f32 bits are below 2^31). A plain min over
@@ -28,8 +36,8 @@ import torch
 from ..util import sqrt_f32
 from . import build
 
-# bytes a descriptor row may have: the keys hold d^2 in 23 bits, and
-# 128 x 255^2 < 2^23
+# bytes a descriptor row may have: the keys hold d^2 in 23 bits and the
+# packed operand's fields in 24, and 128 x 255^2 < 2^23
 MAX_DIM = 128
 
 

@@ -1197,14 +1197,16 @@ def _u8_rows(gen, n, dev, width=128):
 
 M1_SHAPES = ([(q, t) for q in (1, 17, 1000, 8192)
               for t in (1, 129, 100003, 1048576)]
-             + [(1024, 1100), (20000, 100003)])
+             + [(1024, 1100), (20000, 100003), (8191, 100003)])
 
 
 def test_m1_matches_loop_on_card(dev, monkeypatch):
     """M1 equals the chunk loop bit for bit (best_train, distance, keep, with
     and without the cross-check) at Q in {1, 17, 1000, 8192} x T in {1, 129,
     100003, 1048576}, the video step's ~1k x ~1k, a query of 20,000 rows
-    (three passes of the kernel's 8,192) and rows of 64 bytes; a quarter of
+    (ten passes of the kernel's 2,048), an odd Q against a ragged T
+    (8,191 x 100,003: the last operand packs a query row beside a padding
+    row) and rows of 64 bytes; a quarter of
     the queries are copies of train rows, so the cross-check keeps some.
     Rows of 130 bytes, wider than M1's keys hold, take the loop (no launch)
     and equal the CPU's answer."""
@@ -1238,7 +1240,10 @@ def test_m1_ties_on_card(dev, monkeypatch):
     blocks of queries, blocks of the grid and passes. Duplicated train
     rows (the first copy wins a query), duplicated query rows (the first
     copy keeps the cross-check), and all-equal rows (every distance tied:
-    train row 0 wins every query, query 0 every train row)."""
+    train row 0 wins every query, query 0 every train row). Then the ends
+    of the packed fields: all-255 queries against all-0 train rows (every
+    d^2 128 x 255^2) and against all-255 rows (every d^2 0), and all-0
+    queries against all-255 rows beside them (the largest field)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(61)
     train, query = _u8_rows(gen, 132 * 64 * 2 + 5, dev), _u8_rows(gen, 9000, dev)
@@ -1259,6 +1264,19 @@ def test_m1_ties_on_card(dev, monkeypatch):
         query = _u8_rows(gen, 1, dev).expand(n_q, -1).contiguous()
         bt, _, keep = _check_m1(monkeypatch, train, query)
         assert bt.eq(0).all() and keep[0] and keep.sum() == 1
+    full = torch.full((1, 128), 255, dtype=torch.uint8, device=dev)
+    zero = torch.zeros_like(full)
+    for t_row, d2 in ((zero, 128 * 255 ** 2), (full, 0)):
+        train = t_row.expand(9000, -1).contiguous()
+        query = full.expand(8999, -1).contiguous()
+        bt, dist, keep = _check_m1(monkeypatch, train, query)
+        assert bt.eq(0).all() and keep[0] and keep.sum() == 1
+        assert torch.equal(dist, torch.full_like(dist, d2 ** 0.5))
+    train = torch.cat([zero.expand(4000, -1), full.expand(5000, -1)])
+    query = torch.cat([full.expand(300, -1), zero.expand(200, -1)])
+    bt, dist, keep = _check_m1(monkeypatch, train, query)
+    assert bt[:300].eq(4000).all() and bt[300:].eq(0).all()
+    assert dist.eq(0).all() and keep[0] and keep[300] and keep.sum() == 2
 
 
 def test_m1_service_query_on_card(dev, monkeypatch):

@@ -191,24 +191,33 @@ def _f32_bits(d2: np.ndarray) -> np.ndarray:
 
 def _m1_model(train, query, bt, bq, n_blocks, qmax, groups=2):
     """A plain model of M1's reduction (csrc/matcher.cu), in its integer
-    arithmetic: the accumulator's low word lo = 2^6 (2^25 + ||a||^2 - 2 a.b),
-    the 32-bit keys lo + column and lo + 2^6 (||b||^2 - 2^25) + row (that is
-    d^2 << 6 | row) taken mod 2^32, padding rows of norm 2^24 at the ragged
-    ends; the train tiles of bt rows split into n_blocks contiguous ranges,
-    each sweeping blocks of bq queries in passes of qmax queries, the blocks
-    dealt round-robin to `groups` groups that each keep their own running
-    column minima (merged at the tile's end), as many blocks to each group
-    (the last ones all padding); the packed u64 keys min-merged across
-    tiles, blocks and passes. Returns (row_key, col_key) as int64. The keys'
-    6 index bits hold a tile of at most 64 train rows and a block of at
-    most 64 queries, the kernel's sizes."""
-    assert bt <= 64 and bq <= 64
+    arithmetic. Query rows pack two to an f64 operand, B = b1 + 2^24 b2
+    (rows l and l + bq/4 of each half of a block of bq rows: the kernel's
+    two warps along the queries); the train tile is -2 a and the
+    accumulator starts at 2^52 + G (1 + 2^24), G = ||a||^2 + 2^23 (a
+    padding train row: G = 2^24 - 1), so it ends at 2^52 + F1 + 2^24 F2,
+    Fj = G - 2 a.bj, every field in [0, 2^24) and every accumulator in
+    [2^52, 2^53) (asserted). The fields are read from the low word lo and
+    high word hi: s1 = lo << 8 and s2 = (hi:lo >> 16) & ~0xff, each F << 8.
+    The 32-bit keys are s + column (a row's minimum) and s + ((||b||^2 -
+    2^23) << 8) + row in the half (d^2 << 8 | row, a column's), taken mod
+    2^32; a padding query row is a zero row of norm 2^23. The train tiles
+    of bt rows split into n_blocks contiguous ranges, each sweeping blocks
+    of bq queries in passes of qmax queries, the blocks dealt round-robin to
+    `groups` groups that each keep their own running column minima (merged
+    at the tile's end), as many blocks to each group (the last ones all
+    padding); the packed u64 keys min-merged across tiles, blocks and
+    passes. Returns (row_key, col_key) as int64. The keys' 8 index bits
+    hold a tile of at most 64 train rows and a half of at most 64 queries,
+    the kernel's sizes."""
+    assert bt <= 64 and bq <= 128 and bq % 4 == 0
     n_t, n_q = len(train), len(query)
     n_tiles = -(-n_t // bt)
     a = np.zeros((n_tiles * bt, train.shape[1]), np.int64)
     a[:n_t] = train
-    aa = (a * a).sum(1)
-    aa[n_t:] = 1 << 24
+    g_start = (a * a).sum(1) + (1 << 23)
+    g_start[n_t:] = (1 << 24) - 1
+    hw, pr = bq // 2, bq // 4        # rows a half, operands a half
     row_key = np.full(n_q, np.uint64(2 ** 64 - 1))
     col_key = np.zeros(n_t, np.uint64)
     for q0 in range(0, n_q, qmax):
@@ -217,7 +226,8 @@ def _m1_model(train, query, bt, bq, n_blocks, qmax, groups=2):
         b = np.zeros((nqb * bq, train.shape[1]), np.int64)
         b[:nq] = query[q0:q0 + nq]
         bb = (b * b).sum(1)
-        bb[nq:] = 1 << 24
+        bb[nq:] = 1 << 23
+        bbm = bb - (1 << 23)
         for blk in range(n_blocks):
             skey = np.full(nq, np.uint64(2 ** 64 - 1))
             for tile in range(blk * n_tiles // n_blocks,
@@ -228,22 +238,32 @@ def _m1_model(train, query, bt, bq, n_blocks, qmax, groups=2):
                     best_d = np.full(bt, M32, np.int64)
                     best_q = np.zeros(bt, np.int64)
                     for qb in range(grp, nqb, groups):
-                        rows = slice(qb * bq, (qb + 1) * bq)
-                        lo = ((1 << 25) + aa[None, cols]
-                              - 2 * (b[rows] @ a[cols].T)) << 6
-                        assert lo.min() >= 0 and lo.max() < 1 << 32
-                        r = (lo + np.arange(bt)[None]).min(1)
-                        d = ((r >> 6) + bb[rows] - (1 << 25)) & M32
-                        key = (_f32_bits(d) << np.uint64(32)) | (
-                            tile * bt + (r & 63)).astype(np.uint64)
-                        n_valid = max(0, min(bq, nq - qb * bq))
-                        sl = slice(qb * bq, qb * bq + n_valid)
-                        skey[sl] = np.minimum(skey[sl], key[:n_valid])
-                        c = ((lo + (((bb[rows] - (1 << 25)) << 6)
-                                    + np.arange(bq))[:, None]) & M32).min(0)
-                        better = (c >> 6) < best_d
-                        best_d = np.where(better, c >> 6, best_d)
-                        best_q = np.where(better, q0 + qb * bq + (c & 63), best_q)
+                        for half in range(2):
+                            h0 = qb * bq + half * hw
+                            b1, b2 = b[h0:h0 + pr], b[h0 + pr:h0 + hw]
+                            acc = ((1 << 52) + g_start[None, cols] * ((1 << 24) + 1)
+                                   - 2 * ((b1 + (b2 << 24)) @ a[cols].T))
+                            assert acc.min() >= 1 << 52 and acc.max() < 1 << 53
+                            lo, hi = acc & M32, acc >> 32
+                            f1, f2 = lo & 0xFFFFFF, (acc >> 24) & 0xFFFFFF
+                            assert f1.max() < 1 << 24 and f2.max() < 1 << 24
+                            s1 = (lo << 8) & M32
+                            s2 = ((((hi << 32) | lo) >> 16) & M32) & ~0xFF
+                            assert (s1 == f1 << 8).all() and (s2 == f2 << 8).all()
+                            s = np.concatenate([s1, s2])   # rows of the half
+                            r = (s + np.arange(bt)[None]).min(1)
+                            rows = slice(h0, h0 + hw)
+                            d = ((r >> 8) + bbm[rows]) & M32
+                            key = (_f32_bits(d) << np.uint64(32)) | (
+                                tile * bt + (r & 0xFF)).astype(np.uint64)
+                            n_valid = max(0, min(hw, nq - h0))
+                            sl = slice(h0, h0 + n_valid)
+                            skey[sl] = np.minimum(skey[sl], key[:n_valid])
+                            c = ((s + ((bbm[rows] << 8)
+                                       + np.arange(hw))[:, None]) & M32).min(0)
+                            better = (c >> 8) < best_d
+                            best_d = np.where(better, c >> 8, best_d)
+                            best_q = np.where(better, q0 + h0 + (c & 0xFF), best_q)
                     best.append((best_d, best_q))
                 best_d, best_q = best[0]
                 for od, oq in best[1:]:
@@ -270,19 +290,67 @@ def _tie_cases():
                                            .astype(np.uint8), 45, 0)
 
 
-@pytest.mark.parametrize("split", [(64, 64, 1, 8192), (64, 64, 3, 8192),
-                                   (7, 13, 4, 50), (50, 60, 2, 8192, 1),
-                                   (1, 1, 2, 3, 3)],
-                         ids=["kernel", "kernel-3-blocks", "ragged-passes",
-                              "ragged-tiles", "single-rows"])
-def test_m1_model_equals_chunk_loop(split):
+def _extreme_cases():
+    """The ends of d^2 and of the fields: all-255 queries against all-0
+    train rows (every d^2 = 128 x 255^2 = 8,323,200, the largest) and
+    against all-255 rows (d^2 = 0, F = 65,408, the smallest field), then
+    both kinds of row on both sides (all-0 queries against all-255 rows:
+    F = 16,711,808, the largest field), ties everywhere."""
+    full, zero = np.full((1, 128), 255, np.uint8), np.zeros((1, 128), np.uint8)
+    yield np.repeat(zero, 70, 0), np.repeat(full, 45, 0)
+    yield np.repeat(full, 70, 0), np.repeat(full, 45, 0)
+    yield np.concatenate([np.repeat(zero, 40, 0), np.repeat(full, 30, 0)]), \
+        np.concatenate([np.repeat(full, 9, 0), np.repeat(zero, 8, 0)])
+
+
+def _odd_q_case():
+    """An odd number of queries (the last operand holds one real row beside
+    a padding row), each a copy of a train row, some tied."""
+    rng = np.random.RandomState(11)
+    train = rng.randint(0, 256, (90, 128)).astype(np.uint8)
+    query = train[rng.randint(0, 90, 33)]
+    query[31] = query[5]
+    yield train, query
+
+
+def _ragged_pair_case():
+    """A ragged train tile (65 rows: the second tile holds one real row and
+    63 padding rows) against queries that pack the tile's real last row's
+    copy beside a padding query row, and all-255 queries beside it: the
+    padding train rows' fields (2^24 - 1) sit beside real fields and never
+    win."""
+    rng = np.random.RandomState(12)
+    train = rng.randint(0, 256, (65, 128)).astype(np.uint8)
+    train[64] = 255
+    query = rng.randint(0, 256, (7, 128)).astype(np.uint8)
+    query[6] = train[64]
+    query[2] = 255
+    query[3] = 0
+    yield train, query
+
+
+M1_CASES = {"kernel": ((64, 128, 1, 2048), _tie_cases),
+            "kernel-3-blocks": ((64, 128, 3, 2048), _tie_cases),
+            "ragged-passes": ((7, 12, 4, 50), _tie_cases),
+            "ragged-tiles": ((50, 60, 2, 8192, 1), _tie_cases),
+            "single-rows": ((1, 4, 2, 3, 3), _tie_cases),
+            "extremes": ((64, 128, 2, 2048), _extreme_cases),
+            "odd-q": ((64, 128, 1, 2048), _odd_q_case),
+            "ragged-pair": ((64, 128, 1, 2048), _ragged_pair_case)}
+
+
+@pytest.mark.parametrize("case", list(M1_CASES))
+def test_m1_model_equals_chunk_loop(case):
     """M1's reduction, modelled in plain integer arithmetic with its packed
-    keys, min-merged over train-range and query-block splits (and passes),
-    unpacked by the wrapper module's `keys_to_matches`, equals the chunk loop bit for bit on
-    planted ties, with and without the cross-check."""
+    operands and keys, min-merged over train-range and query-block splits
+    (and passes), unpacked by the wrapper module's `keys_to_matches`, equals
+    the chunk loop bit for bit, with and without the cross-check: on
+    planted ties, on the fields' extreme rows, on an odd Q and on a ragged
+    train tile beside a padded query operand."""
     from sift_features_tpu_torch.ops.kernels import matcher as kmatcher
 
-    for train, query in _tie_cases():
+    split, cases = M1_CASES[case]
+    for train, query in cases():
         keys = _m1_model(train, query, *split)
         t, q = torch.from_numpy(train), torch.from_numpy(query)
         for cc in (True, False):
@@ -323,7 +391,7 @@ def test_m1_dispatch(monkeypatch):
 
     def fake_keys(tr, qu):
         calls["kernel"] += 1
-        return _m1_model(tr.numpy(), qu.numpy(), 64, 64, 2, 8192)
+        return _m1_model(tr.numpy(), qu.numpy(), 64, 128, 2, 2048)
 
     def loop_chunk(*a):
         calls["loop"] += 1
